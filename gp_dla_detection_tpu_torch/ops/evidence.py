@@ -1,18 +1,22 @@
-"""Per-sample DLA evidence: the CUDA kernel, its wrapper, its plain version.
+"""Per-sample DLA evidence: the CUDA kernel, its wrappers, its plain versions.
 
-Counterpart of ``gp_dla_detection_tpu/ops/evidence_pallas.py`` in its
-single-absorber configuration.  For a batch of spectra and, per
-spectrum, S QMC samples (z_DLA, N_HI), compute the (B, S) log likelihoods
-of the DLA model: Voigt absorption -> instrumental convolution -> masked
-Woodbury log-density.
+Counterpart of ``gp_dla_detection_tpu/ops/evidence_pallas.py`` in both
+its configurations.  For a batch of spectra and, per spectrum, S QMC
+samples, compute the (B, S) log likelihoods of the DLA model: Voigt
+absorption -> instrumental convolution -> masked Woodbury log-density.
+A sample is one absorber (z_DLA, N_HI), or, in the two-DLA pair
+configuration, a pair of absorbers whose optical depths add.
 
-- :func:`sample_log_likelihoods` is the wrapper.  On CUDA tensors it
-  launches ``csrc/evidence.cu`` (float32 only) or raises; on CPU tensors
-  it runs the plain version.  It never falls back on the card.
-- :func:`sample_log_likelihoods_reference` is the plain PyTorch version,
-  any dtype, any device, looping over sample chunks so that no
+- :func:`sample_log_likelihoods` / :func:`sample_log_likelihoods_pair`
+  are the wrappers.  On CUDA tensors they launch ``csrc/evidence.cu``
+  (float32 only) or raise; on CPU tensors they run the plain version.
+  They never fall back on the card.
+- :func:`sample_log_likelihoods_reference` /
+  :func:`sample_log_likelihoods_pair_reference` are the plain PyTorch
+  versions, any dtype, any device, looping over sample chunks so that no
   (S, P6) array is materialised whole.
-- ``launch_count`` counts kernel launches made by the wrapper.
+- ``launch_count`` / ``pair_launch_count`` count the kernel launches
+  made by each wrapper.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .low_rank_mvn import batched_dla_log_likelihoods
 from .voigt import (
     WINDOW_MARGIN,
     _LineConstants,
+    pair_absorption,
     voigt_absorption,
     voigt_absorption_windowed,
 )
@@ -39,7 +44,10 @@ __all__ = [
     "KERNEL_TILE",
     "kernel_constants",
     "launch_count",
+    "pair_launch_count",
     "sample_log_likelihoods",
+    "sample_log_likelihoods_pair",
+    "sample_log_likelihoods_pair_reference",
     "sample_log_likelihoods_reference",
     "supported_k",
 ]
@@ -52,7 +60,8 @@ SAMPLE_TILE = 256
 KERNEL_TILE = 64
 MAX_LINES = 31
 
-launch_count = 0
+launch_count = 0        # single-absorber kernel launches
+pair_launch_count = 0   # two-DLA pair kernel launches
 
 
 def kernel_constants(num_lines: int, instrument: InstrumentParams) -> dict:
@@ -135,21 +144,9 @@ def sample_log_likelihoods_reference(
     """
     if instrument is None:
         instrument = InstrumentParams()
-    _check_grid(ext_wavelengths, flux, instrument)
-    if window is not None and sample_chunk > SAMPLE_TILE:
-        raise ValueError(
-            f"windowed chunks of {sample_chunk} samples exceed the "
-            f"{SAMPLE_TILE}-sample span the window is sized for"
-        )
-    mask = mask.to(torch.bool)
-    flux, noise_variance, mu, omega2 = _neutralize_masked(
-        mask, flux, noise_variance, mu, omega2
-    )
-    S = z_dlas.shape[-1]
-    out = []
-    for c0 in range(0, S, sample_chunk):
-        z_c = z_dlas[..., c0 : c0 + sample_chunk]
-        n_c = nhi[..., c0 : c0 + sample_chunk]
+
+    def absorb(c0, c1):
+        z_c, n_c = z_dlas[..., c0:c1], nhi[..., c0:c1]
         if window is not None:
             absorption = voigt_absorption_windowed(
                 ext_wavelengths, z_c, n_c, num_lines=num_lines,
@@ -165,9 +162,77 @@ def sample_log_likelihoods_reference(
                 absorption, -1,
                 absorption_index[..., None, :].expand(absorption.shape),
             )
+        return absorption
+
+    return _plain_evidence(
+        ext_wavelengths, flux, mu, M, omega2, noise_variance, mask,
+        z_dlas.shape[-1], absorb, instrument, window, sample_chunk,
+    )
+
+
+def sample_log_likelihoods_pair_reference(
+    ext_wavelengths,   # (B, P + 2*width)
+    flux,              # (B, P)
+    mu,                # (B, P)
+    M,                 # (B, P, k)
+    omega2,            # (B, P)
+    noise_variance,    # (B, P)
+    mask,              # (B, P) bool
+    z_dlas,            # (B, S) first absorber (the fresh QMC axis)
+    nhi,               # (B, S)
+    z_dlas2,           # (B, S) second absorber (the resampled base axis)
+    nhi2,              # (B, S)
+    num_lines: int = 3,
+    instrument: InstrumentParams | None = None,
+    window: int | None = None,
+    sample_chunk: int = KERNEL_TILE,
+):
+    """The plain PyTorch version of the pair kernel, (B, S): sample s is
+    the pair (z_dlas[:, s], nhi[:, s]) + (z_dlas2[:, s], nhi2[:, s]),
+    whose optical depths add before one exp (ops/voigt.pair_absorption).
+
+    ``window`` applies to the first axis only, exactly as in
+    :func:`sample_log_likelihoods_reference` (z_dlas ascending, float32);
+    the second axis always takes the full grid.
+    """
+    if instrument is None:
+        instrument = InstrumentParams()
+
+    def absorb(c0, c1):
+        return pair_absorption(
+            ext_wavelengths, z_dlas[..., c0:c1], nhi[..., c0:c1],
+            z_dlas2[..., c0:c1], nhi2[..., c0:c1], num_lines=num_lines,
+            instrument=instrument, window=window,
+        )
+
+    return _plain_evidence(
+        ext_wavelengths, flux, mu, M, omega2, noise_variance, mask,
+        z_dlas.shape[-1], absorb, instrument, window, sample_chunk,
+    )
+
+
+def _plain_evidence(
+    ext_wavelengths, flux, mu, M, omega2, noise_variance, mask, S, absorb,
+    instrument, window, sample_chunk,
+):
+    """The chunk loop shared by the plain versions: ``absorb(c0, c1)``
+    gives the (B, c1 - c0, P) broadened absorption of samples c0:c1."""
+    _check_grid(ext_wavelengths, flux, instrument)
+    if window is not None and sample_chunk > SAMPLE_TILE:
+        raise ValueError(
+            f"windowed chunks of {sample_chunk} samples exceed the "
+            f"{SAMPLE_TILE}-sample span the window is sized for"
+        )
+    mask = mask.to(torch.bool)
+    flux, noise_variance, mu, omega2 = _neutralize_masked(
+        mask, flux, noise_variance, mu, omega2
+    )
+    out = []
+    for c0 in range(0, S, sample_chunk):
         out.append(
             batched_dla_log_likelihoods(
-                flux, mu, M, omega2, noise_variance, mask, absorption
+                flux, mu, M, omega2, noise_variance, mask,
+                absorb(c0, min(c0 + sample_chunk, S)),
             )
         )
     return torch.cat(out, dim=-1)
@@ -178,15 +243,18 @@ def _kernel_library():
     from .. import _build
 
     built = _build.load_library("evidence")
-    fn = built.lib.gpdla_evidence_single_f32
-    fn.argtypes = (
-        [ctypes.c_void_p] * 11
-        + [ctypes.c_int] * 7
-        + [ctypes.c_void_p] * 3
-        + [ctypes.c_float] * 5
-        + [ctypes.c_int, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
+    for fn, n_arrays in (
+        (built.lib.gpdla_evidence_single_f32, 11),
+        (built.lib.gpdla_evidence_pair_f32, 13),
+    ):
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_arrays
+            + [ctypes.c_int] * 7
+            + [ctypes.c_void_p] * 3
+            + [ctypes.c_float] * 5
+            + [ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
     built.lib.gpdla_error_string.argtypes = [ctypes.c_int]
     built.lib.gpdla_error_string.restype = ctypes.c_char_p
     built.lib.gpdla_evidence_supported_k.argtypes = []
@@ -238,8 +306,67 @@ def sample_log_likelihoods(
             z_dlas, nhi, num_lines=num_lines, instrument=instrument,
             window=window,
         )
+    out = _launch(
+        "gpdla_evidence_single_f32", ext_wavelengths, flux, mu, M, omega2,
+        noise_variance, mask, (z_dlas, nhi), num_lines, instrument, window,
+    )
+    global launch_count
+    launch_count += 1
+    return out
+
+
+def sample_log_likelihoods_pair(
+    ext_wavelengths,   # (B, P + 2*width)
+    flux,              # (B, P)
+    mu,                # (B, P)
+    M,                 # (B, P, k)
+    omega2,            # (B, P)
+    noise_variance,    # (B, P)
+    mask,              # (B, P) bool
+    z_dlas,            # (B, S) first absorber (the fresh QMC axis)
+    nhi,               # (B, S)
+    z_dlas2,           # (B, S) second absorber (the resampled base axis)
+    nhi2,              # (B, S)
+    num_lines: int = 3,
+    instrument: InstrumentParams | None = None,
+    window: int | None = None,
+):
+    """Two-DLA pair log likelihoods, (B, S): sample s is the absorber
+    pair (z_dlas, nhi)[:, s] + (z_dlas2, nhi2)[:, s].
+
+    CUDA tensors: the kernel's pair configuration, float32 only, with
+    the same refusals as :func:`sample_log_likelihoods`.  CPU tensors:
+    :func:`sample_log_likelihoods_pair_reference`.  ``window`` applies
+    to the first axis (z_dlas ascending); the second axis is evaluated
+    on the full grid, in any order.
+    """
+    if instrument is None:
+        instrument = InstrumentParams()
+    if not flux.is_cuda:
+        return sample_log_likelihoods_pair_reference(
+            ext_wavelengths, flux, mu, M, omega2, noise_variance, mask,
+            z_dlas, nhi, z_dlas2, nhi2, num_lines=num_lines,
+            instrument=instrument, window=window,
+        )
+    out = _launch(
+        "gpdla_evidence_pair_f32", ext_wavelengths, flux, mu, M, omega2,
+        noise_variance, mask, (z_dlas, nhi, z_dlas2, nhi2), num_lines,
+        instrument, window,
+    )
+    global pair_launch_count
+    pair_launch_count += 1
+    return out
+
+
+def _launch(
+    entry, ext_wavelengths, flux, mu, M, omega2, noise_variance, mask,
+    samples, num_lines, instrument, window,
+):
+    """Validate the inputs, launch the C entry point ``entry`` on the
+    current stream and return its (B, S) output; raises on anything the
+    kernel cannot take and on a failed build or launch."""
     _check_grid(ext_wavelengths, flux, instrument)
-    floats = (ext_wavelengths, flux, mu, M, omega2, noise_variance, z_dlas, nhi)
+    floats = (ext_wavelengths, flux, mu, M, omega2, noise_variance, *samples)
     for t in (*floats, mask):
         if t.device != flux.device:
             raise ValueError(
@@ -254,14 +381,15 @@ def sample_log_likelihoods(
     B, P = flux.shape
     P6 = ext_wavelengths.shape[-1]
     k = M.shape[-1]
-    S = z_dlas.shape[-1]
+    S = samples[0].shape[-1]
     if ext_wavelengths.shape != (B, P6) or M.shape != (B, P, k):
         raise ValueError("ext_wavelengths must be (B, P6) and M (B, P, k)")
     for t in (mu, omega2, noise_variance, mask):
         if t.shape != (B, P):
             raise ValueError(f"per-pixel inputs must be {(B, P)}, got {tuple(t.shape)}")
-    if z_dlas.shape != (B, S) or nhi.shape != (B, S):
-        raise ValueError("z_dlas and nhi must both be (B, S)")
+    for t in samples:
+        if t.shape != (B, S):
+            raise ValueError(f"per-sample inputs must all be {(B, S)}, got {tuple(t.shape)}")
     if not 1 <= num_lines <= MAX_LINES:
         raise ValueError(f"num_lines must be in [1, {MAX_LINES}], got {num_lines}")
     if k not in supported_k():
@@ -282,7 +410,7 @@ def sample_log_likelihoods(
     contiguous = [
         t.contiguous()
         for t in (ext_wavelengths, flux, mu, omega2, noise_variance, maskf, M,
-                  z_dlas, nhi, n_eff)
+                  *samples, n_eff)
     ]
     out = torch.empty((B, S), dtype=torch.float32, device=flux.device)
 
@@ -290,7 +418,7 @@ def sample_log_likelihoods(
     built = _kernel_library()
     with torch.cuda.device(flux.device):
         stream = torch.cuda.current_stream(flux.device).cuda_stream
-        err = built.lib.gpdla_evidence_single_f32(
+        err = getattr(built.lib, entry)(
             *[t.data_ptr() for t in contiguous], out.data_ptr(),
             B, P, P6, k, S, num_lines, 0 if window is None else int(window),
             cst["line_table"].ctypes.data, cst["g"].ctypes.data,
@@ -301,6 +429,4 @@ def sample_log_likelihoods(
     if err != 0:
         msg = built.lib.gpdla_error_string(err).decode()
         raise RuntimeError(f"evidence kernel launch failed: {msg} (cudaError {err})")
-    global launch_count
-    launch_count += 1
     return out

@@ -27,6 +27,7 @@ from .faddeeva import _SQRT_PI, g_function, wofz_real, wofz_real_fast
 __all__ = [
     "voigt_absorption",
     "voigt_absorption_windowed",
+    "pair_absorption",
     "instrumental_broadening",
     "extend_wavelengths",
     "WINDOW_MARGIN",
@@ -132,26 +133,8 @@ def voigt_absorption(
     if instrument is None:
         instrument = InstrumentParams()
     wavelengths = torch.as_tensor(padded_wavelengths)
-    dtype = wavelengths.dtype
     z, column, scalar_sample = _samples(wavelengths, z_dla, nhi)
-    k = _LineConstants(dtype, wavelengths.device)
-
-    if fast is None:
-        fast = dtype == torch.float32
-    wofz_fn = wofz_real_fast if fast else wofz_real
-
-    lam = wavelengths[..., None, :]
-    total = None
-    for j in range(num_lines):
-        lambda_t, y, lead_j = k.line(j)
-        # velocity relative to the redshifted line [cm/s]; wavelengths
-        # in Å, transition wavelengths in cm (1 Å = 1e-8 cm)
-        multiplier = k.c / (lambda_t * (1.0 + z)) / k.angstrom_per_cm
-        x = (lam * multiplier - k.c) * k.inv_sqrt2_sigma
-        term = (lead_j * k.voigt_norm) * wofz_fn(x, y.expand(x.shape))
-        total = -term if total is None else total - term
-
-    raw_profile = torch.exp(column * total)
+    raw_profile = torch.exp(column * _depth(wavelengths, z, num_lines, fast))
     profile = (
         instrumental_broadening(raw_profile, instrument) if broaden else raw_profile
     )
@@ -199,13 +182,78 @@ def voigt_absorption_windowed(
     if instrument is None:
         instrument = InstrumentParams()
     wavelengths = torch.as_tensor(padded_wavelengths)
+    z, column, _ = _samples(wavelengths, z_dla_sorted, nhi)
+    total = _depth_windowed(wavelengths, z, num_lines, instrument, window)
+    return instrumental_broadening(torch.exp(column * total), instrument)
+
+
+def pair_absorption(
+    padded_wavelengths,
+    z_dla,
+    nhi,
+    z_dla2,
+    nhi2,
+    num_lines: int = 3,
+    instrument: InstrumentParams | None = None,
+    window: int | None = None,
+):
+    """Broadened absorption of absorber PAIRS, (..., S, n - 2*width).
+
+    Optical depths add before one exp: exp(N1 t(z1) + N2 t(z2)), the
+    product of the two raw profiles, broadened once (the instrument sees
+    the product; gp_dla_detection_tpu/multi_dla.py::_second_dla_chunk).
+    ``window`` set (float32 only): the first axis is z-ascending and
+    takes the windowed core, as :func:`voigt_absorption_windowed`; the
+    second axis need not be sorted and always takes the full grid.  float32
+    uses the fast Faddeeva path, float64 the accurate one.
+    """
+    if instrument is None:
+        instrument = InstrumentParams()
+    wavelengths = torch.as_tensor(padded_wavelengths)
+    z, column, _ = _samples(wavelengths, z_dla, nhi)
+    z2, column2, _ = _samples(wavelengths, z_dla2, nhi2)
+    if window is None:
+        total = _depth(wavelengths, z, num_lines)
+    else:
+        total = _depth_windowed(wavelengths, z, num_lines, instrument, window)
+    total2 = _depth(wavelengths, z2, num_lines)
+    return instrumental_broadening(
+        torch.exp(column * total + column2 * total2), instrument
+    )
+
+
+def _depth(wavelengths, z, num_lines: int, fast: bool | None = None):
+    """-sum_lines lead_j voigt(x_j) on the whole grid, per unit column
+    density: (..., S, n) for z (..., S, 1).  ``fast``: the small-y
+    Faddeeva path; default fast for float32, accurate for float64."""
+    dtype = wavelengths.dtype
+    k = _LineConstants(dtype, wavelengths.device)
+    if fast is None:
+        fast = dtype == torch.float32
+    wofz_fn = wofz_real_fast if fast else wofz_real
+
+    lam = wavelengths[..., None, :]
+    total = None
+    for j in range(num_lines):
+        lambda_t, y, lead_j = k.line(j)
+        # velocity relative to the redshifted line [cm/s]; wavelengths
+        # in Å, transition wavelengths in cm (1 Å = 1e-8 cm)
+        multiplier = k.c / (lambda_t * (1.0 + z)) / k.angstrom_per_cm
+        x = (lam * multiplier - k.c) * k.inv_sqrt2_sigma
+        term = (lead_j * k.voigt_norm) * wofz_fn(x, y.expand(x.shape))
+        total = -term if total is None else total - term
+    return total
+
+
+def _depth_windowed(wavelengths, z, num_lines: int, instrument, window: int):
+    """:func:`_depth` with the Gaussian core on a ``window``-pixel slice
+    per line and row (z ascending along the sample axis; float32)."""
     dtype = wavelengths.dtype
     if dtype != torch.float32:
         raise ValueError(
             "voigt_absorption_windowed is the float32 fast path; use "
             f"voigt_absorption for dtype={dtype} (accurate Faddeeva)"
         )
-    z, column, _ = _samples(wavelengths, z_dla_sorted, nhi)
     P6 = wavelengths.shape[-1]
     W = min(window, P6)
     k = _LineConstants(dtype, wavelengths.device)
@@ -230,6 +278,4 @@ def voigt_absorption_windowed(
 
         term = (lead_j * k.voigt_norm) * h
         total = -term if total is None else total - term
-
-    raw_profile = torch.exp(column * total)
-    return instrumental_broadening(raw_profile, instrument)
+    return total

@@ -1,4 +1,5 @@
-"""The CUDA evidence kernel on the card, against its plain version.
+"""The CUDA evidence kernel on the card, against its plain versions:
+the single-absorber and the two-DLA pair configurations.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); without a card they
 skip.  The file imports no jax, so on a machine without jax run it
@@ -95,3 +96,52 @@ def test_kernel_refuses_what_it_cannot_take(device):
     with pytest.raises(ValueError, match="must be on"):
         evidence.sample_log_likelihoods(*args)
     assert evidence.launch_count == before
+
+
+def pair_inputs(device, seed=3, **kw):
+    """kernel_inputs plus a second absorber per sample: z in no order
+    (posterior-like draws of the first axis), its own column densities."""
+    args = kernel_inputs(device, seed=seed, **kw)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B, S = args[7].shape
+    draws = torch.stack([torch.randperm(S, generator=g) for _ in range(B)]).to(device)
+    z2 = args[7].gather(1, draws).contiguous()
+    nhi2 = (10 ** (20 + 1.5 * torch.rand((B, S), generator=g, dtype=torch.float64))).to(device, args[8].dtype)
+    return args, z2, nhi2
+
+
+@pytest.mark.parametrize(
+    "S,k,num_lines,window",
+    [(160, 5, 3, None), (130, 5, 3, 256), (64, 20, 3, None), (200, 20, 31, 256)],
+)
+def test_pair_kernel_matches_plain_version(device, S, k, num_lines, window):
+    args, z2, nhi2 = pair_inputs(device, S=S, k=k)
+    before = (evidence.launch_count, evidence.pair_launch_count)
+    out = evidence.sample_log_likelihoods_pair(*args, z2, nhi2, num_lines=num_lines, window=window)
+    torch.cuda.synchronize()
+    assert (evidence.launch_count, evidence.pair_launch_count) == (before[0], before[1] + 1)
+    ref = evidence.sample_log_likelihoods_pair_reference(
+        *args, z2, nhi2, num_lines=num_lines, window=window
+    )
+    assert out.shape == (2, S) and out.dtype == torch.float32
+    assert normalized_err(out, ref) < BOUND
+
+
+def test_pair_kernel_is_the_single_kernel_with_an_empty_second_absorber(device):
+    # N_HI2 = 0 adds exactly 0 to every optical depth
+    args, z2, nhi2 = pair_inputs(device, S=96, k=20)
+    single = evidence.sample_log_likelihoods(*args, window=256)
+    pair = evidence.sample_log_likelihoods_pair(*args, z2, torch.zeros_like(nhi2), window=256)
+    assert torch.equal(single, pair)
+
+
+def test_pair_kernel_refuses_what_it_cannot_take(device):
+    before = evidence.pair_launch_count
+    args, z2, nhi2 = pair_inputs(device, S=32)
+    with pytest.raises(ValueError, match="float32-only"):
+        evidence.sample_log_likelihoods_pair(*args, z2.double(), nhi2)
+    with pytest.raises(ValueError, match="must be on"):
+        evidence.sample_log_likelihoods_pair(*args, z2.cpu(), nhi2)
+    with pytest.raises(ValueError, match="per-sample inputs"):
+        evidence.sample_log_likelihoods_pair(*args, z2[:, :16], nhi2)
+    assert evidence.pair_launch_count == before

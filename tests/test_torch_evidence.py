@@ -142,3 +142,77 @@ def test_batch_log_likelihoods_matches_pallas_interpret(S):
     np.testing.assert_allclose(
         ours["min_z_dla"].numpy(), np.asarray(ref["min_z_dla"]), rtol=1e-6
     )
+
+
+def _line_count_problem(seed=0, B=2, P=384, k=4, S=64):
+    """tests/test_evidence_pallas.py::test_line_loop_matches_unrolled's
+    inputs: one grid from 3600 Å, samples z-sorted in a narrow band
+    around an anchor line's center mid-grid."""
+    rng = np.random.default_rng(seed)
+    w = InstrumentParams().width
+    P6 = P + 2 * w
+    f32 = np.float32
+    lam = np.stack([10 ** (np.log10(3600.0) + 1e-4 * np.arange(P6))] * B).astype(f32)
+    arrays = [
+        lam,
+        rng.normal(1, 0.3, (B, P)).astype(f32),
+        np.ones((B, P), f32),
+        (rng.normal(size=(B, P, k)) * 0.1).astype(f32),
+        rng.uniform(0.01, 0.05, (B, P)).astype(f32),
+        rng.uniform(0.05, 0.2, (B, P)).astype(f32),
+        rng.uniform(size=(B, P)) > 0.05,
+    ]
+
+    def sample_z(anchor_lambda):
+        zc = lam[:, w + P // 2] / anchor_lambda - 1
+        return np.sort(rng.uniform(zc[:, None] - 0.02, zc[:, None] + 0.02, (B, S)), axis=1).astype(f32)
+
+    nhi = (10 ** rng.uniform(20, 22, (B, S))).astype(f32)
+    return arrays, sample_z, nhi
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("num_lines", [9, 31])
+def test_plain_evidence_matches_pallas_interpret_at_many_lines(num_lines, window):
+    # beyond the 8-line unroll the TPU kernel loops over its line table
+    # (windowed); samples around Lyα's core mid-grid
+    arrays, sample_z, nhi = _line_count_problem()
+    z = sample_z(1215.6701)
+    ref = pallas_sample_log_likelihoods(
+        *[jnp.asarray(a) for a in (*arrays, z, nhi)], num_lines=num_lines,
+        interpret=True, tile=64, window=window,
+    )
+    ours = evidence.sample_log_likelihoods(
+        *[torch.as_tensor(a) for a in (*arrays, z, nhi)], num_lines=num_lines,
+        window=window,
+    )
+    assert normalized_err(ours.numpy(), ref) < BOUND
+
+
+# float32 position rounding with saturated high-order line cores on the
+# grid: one ulp of lambda * c / (lambda_t (1 + z)) ~ 3e10 cm/s is ~1e-3
+# Doppler widths, and moves evidences by ~3-5e-4 normalized from the
+# float64 evaluation of the same formula, for the Pallas kernel and the
+# port alike; the two round the line multiplier in another order
+# ((c / (lambda_t 1e8)) / (1 + z) against c / (lambda_t (1 + z)) / 1e8),
+# so they differ from each other by as much
+F32_POSITION_BOUND = 1e-3
+
+
+def test_plain_evidence_at_a_high_order_line_anchor():
+    # z anchored at line 9's core (the loop-vs-unroll geometry of
+    # tests/test_evidence_pallas.py), so lines 4-9 dominate
+    arrays, sample_z, nhi = _line_count_problem()
+    z = sample_z(920.9631)
+    ref = np.asarray(pallas_sample_log_likelihoods(
+        *[jnp.asarray(a) for a in (*arrays, z, nhi)], num_lines=9,
+        interpret=True, tile=64, window=256,
+    ))
+    t = [torch.as_tensor(a) for a in (*arrays, z, nhi)]
+    ours = evidence.sample_log_likelihoods(*t, num_lines=9, window=256).numpy()
+    exact = evidence.sample_log_likelihoods_reference(
+        *[a.double() if a.is_floating_point() else a for a in t], num_lines=9,
+    ).numpy()
+    assert normalized_err(ours, ref) < F32_POSITION_BOUND
+    assert normalized_err(ours, exact) < F32_POSITION_BOUND
+    assert normalized_err(ref, exact) < F32_POSITION_BOUND

@@ -33,6 +33,11 @@ PORT_MODULES = [
     "gp_dla_detection_tpu_torch.models",
     "gp_dla_detection_tpu_torch.models.qso_model",
     "gp_dla_detection_tpu_torch.inference",
+    "gp_dla_detection_tpu_torch.multi_dla",
+    "gp_dla_detection_tpu_torch.parallel",
+    "gp_dla_detection_tpu_torch.parallel.streaming",
+    "gp_dla_detection_tpu_torch.parallel.sharded_inference",
+    "gp_dla_detection_tpu_torch.parallel.sharded_multi",
 ]
 
 
