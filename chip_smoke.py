@@ -32,7 +32,24 @@ Phases, each reported on its own line; any failure exits non-zero:
    subset against the classic driver on the float64 plain path (no
    decision flips where the float64 winner's posterior exceeds 0.91,
    pair evidences within rtol 5e-4 / atol 5e-3);
-7. print a JSON line describing both kernel configurations and, last, a
+7. the one-command catalogue release: the lean chain's rate with and
+   without the CDDF reduction on phase 6's spectra (same posteriors);
+   then a synthetic release written to disk at survey widths (~256
+   training and 512 test sightlines, speclite FITS files, DLA catalogues)
+   and ``python -m gp_dla_detection_tpu_torch.pipeline --backend cuda
+   --device cuda --lean --multi-dla --cddf-inputs``, stage by stage, with
+   the L-BFGS budget cut to 40 iterations: each stage's wall time, one
+   single launch per batch in the process stage and one single and one
+   pair launch per batch in the multi stage, finite statistics, posteriors
+   that sum to 1; on 32 release spectra the float32 CUDA CDDF reduction
+   against the float64 plain one (mass channel = p_DLA to 1e-5, the same
+   exact entries away from knife edges); the lean R = 1 statistics
+   against the classic full-matrix run's within the R = 1 bounds of
+   validation/RESULTS_LEAN_CDDF.md; the R = 4 statistics' distance from
+   classic beside the scatter of the base redraw (R = 1 and R = 4 at
+   other base seeds); the device reductions of the R = 1 and R = 4 runs
+   redone by the float64 host reducer from their recorded inputs;
+8. print a JSON line describing both kernel configurations and, last, a
    JSON line with the device.
 
 Weights and data are random, made from ``--seed`` with numpy.  The
@@ -42,6 +59,7 @@ script imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -59,6 +77,16 @@ BATCH = 128
 F64_SUBSET = 32               # spectra re-run on the float64 plain path
 PAIR_RTOL, PAIR_ATOL = 5e-4, 5e-3   # pair evidence, f32 lean vs f64 classic
                                     # (tests/test_lean_multi.py:234-238)
+RELEASE_TEST = 512            # release phase: test sightlines (4 batches of 128)
+RELEASE_DR9 = 430             # DR9 sightlines: the prior set, ~256 of them training
+RELEASE_LBFGS = (40, 80)      # the cut L-BFGS budget: iterations, evaluations
+MASS_RTOL = 1e-5              # CDDF mass channel vs p_DLA, per spectrum
+KNIFE_EDGE = 0.1              # exact entries within 10 % of p_switch may flip
+STAT_BOUNDS = {"cddf": 2.5e-2, "line_density": 2e-3}   # lean R=1 vs classic
+                              # (validation/RESULTS_LEAN_CDDF.md, R = 1)
+REPLAY_RTOL = 1e-6           # device reduction vs the host reducer, same inputs:
+                              # float64 sums in another order, stored as float32
+REDRAWS = ((1, 0), (1, 1), (1, 2), (1, 3), (4, 0), (4, 1), (4, 2), (4, 3))   # (R, base seed)
 
 
 def fail(msg: str) -> None:
@@ -119,11 +147,11 @@ def build_workload(seed: int, n_spectra: int):
     the real 10,000-sample QMC set (samples.generate_dla_samples)."""
     import numpy as np
 
-    from gp_dla_detection_tpu.params import LYA_WAVELENGTH, LYMAN_LIMIT
-    from gp_dla_detection_tpu.samples import generate_dla_samples
-    from gp_dla_detection_tpu.utils.synthetic import synthetic_workload
     from gp_dla_detection_tpu_torch.inference import PaddedSpectra
     from gp_dla_detection_tpu_torch.ops.voigt import extend_wavelengths, voigt_absorption
+    from gp_dla_detection_tpu_torch.params import LYA_WAVELENGTH, LYMAN_LIMIT
+    from gp_dla_detection_tpu_torch.samples import generate_dla_samples
+    from gp_dla_detection_tpu_torch.utils import synthetic_workload
 
     w = synthetic_workload(n_spectra, 1, pixels=1274, k=20, seed=seed, dtype=np.float64)
     params = w["params"]
@@ -161,8 +189,8 @@ def inject_second_dlas(w, params, seed: int):
     at least 0.05 in log(1+z) (15,000 km/s) from the first DLA."""
     import numpy as np
 
-    from gp_dla_detection_tpu.params import LYA_WAVELENGTH, LYMAN_LIMIT
     from gp_dla_detection_tpu_torch.ops.voigt import extend_wavelengths, voigt_absorption
+    from gp_dla_detection_tpu_torch.params import LYA_WAVELENGTH, LYMAN_LIMIT
 
     rng = np.random.default_rng(seed + 2)
     lam, zq = w["wavelengths"][::4], w["z_qso"][::4]
@@ -188,6 +216,546 @@ def inject_second_dlas(w, params, seed: int):
     flux = w["flux"].copy()
     flux[::4] *= absorption[:, 0, :].numpy()
     return flux
+
+
+def write_spec_file(path, loglam, flux, ivar):
+    """One SDSS speclite coadd (the columns spectra.read_spec reads)."""
+    import numpy as np
+
+    from gp_dla_detection_tpu_torch.io import write_bintable
+
+    zeros = np.zeros(len(loglam), np.int32)
+    write_bintable(
+        path,
+        ["FLUX", "LOGLAM", "IVAR", "AND_MASK", "OR_MASK"],
+        [flux.astype(np.float32), loglam.astype(np.float32), ivar.astype(np.float32),
+         zeros, zeros],
+    )
+
+
+def write_release(base, seed: int, device, n_test: int, n_dr9: int):
+    """A synthetic DR12Q release on disk, in the layout the pipeline reads
+    (tests/conftest.py's, at survey widths): the DR12Q/DR9Q/DR10Q FITS
+    catalogues, the three DLA text catalogues and one speclite FITS file
+    per quasar, rest frame 890-1400 A at 1e-4 dex.
+
+    ``n_test`` sightlines pass the catalogue filters (the test set); 8
+    more are filtered (4 below the z cut, 4 BAL).  The first ``n_dr9``
+    are DR9 sightlines searched by the concordance catalogue (the prior
+    set; the training set is those of them without a DLA).  Continua are
+    a Lya/Lyb emission mean plus six smooth random components, the
+    forest a log-normal optical depth about tau_0 (1+z)^beta, and 60 / 30
+    / 10 % of sightlines hold 0 / 1 / 2 DLAs (Voigt profiles, log N_HI
+    about 20.8).  Returns the truth: the DLAs per sightline."""
+    import numpy as np
+    import torch
+
+    from gp_dla_detection_tpu_torch.io import write_bintable
+    from gp_dla_detection_tpu_torch.ops.voigt import extend_wavelengths, voigt_absorption
+    from gp_dla_detection_tpu_torch.params import LYA_WAVELENGTH, LYMAN_LIMIT, Parameters
+
+    rng = np.random.default_rng(seed + 10)
+    params = Parameters(base_directory=str(base))
+    n = n_test + 8
+    thing_ids = np.arange(1001, 1001 + n)
+    z_qso = rng.uniform(2.3, 3.5, n)
+    z_qso[n_test : n_test + 4] = rng.uniform(1.7, 2.1, 4)
+    bal = np.zeros(n, np.int32)
+    bal[n_test + 4 :] = 1
+    plates = (4055 + np.arange(n) // 500).astype(np.int32)
+    fibers = (1 + np.arange(n) % 500).astype(np.int32)
+    mjds = np.full(n, 55359, np.int32)
+    snr = rng.uniform(4.0, 15.0, n)
+
+    # DR12Q: the columns the catalogue builder reads by position
+    names, cols = [], []
+    for name, col in (
+        ("SDSS_NAME", np.array([f"J{i:017d}" for i in range(n)], dtype="S18")),
+        ("RA", rng.uniform(0, 360, n)), ("DEC", rng.uniform(-10, 70, n)),
+        ("THING_ID", thing_ids.astype(np.int32)), ("PLATE", plates), ("MJD", mjds),
+        ("FIBERID", fibers), ("Z_VI", z_qso),
+    ):
+        names.append(name)
+        cols.append(col)
+    for j in range(9, 56):
+        names.append("SNR_SPEC" if j == 33 else f"PAD{j}")
+        cols.append(snr if j == 33 else np.zeros(n, np.float32))
+    names.append("BAL_FLAG_VI")
+    cols.append(bal)
+    d12 = params.distfiles_directory("dr12q")
+    d12.mkdir(parents=True)
+    write_bintable(d12 / "DR12Q.fits", names, cols)
+    for rel, fname, members in (("dr9q", "DR9Q.fits", thing_ids[:n_dr9]),
+                                ("dr10q", "DR10Q_v2.fits", thing_ids)):
+        d = params.distfiles_directory(rel)
+        d.mkdir(parents=True)
+        write_bintable(
+            d / fname, ["SDSS_NAME", "RA", "DEC", "THING_ID"],
+            [np.array(["x"] * len(members), dtype="S18"), np.zeros(len(members)),
+             np.zeros(len(members)), members.astype(np.int32)],
+        )
+
+    # the DLAs: inside the searched range, pairs at least 0.05 apart in z
+    truth = []
+    for i in range(n_test):
+        k = rng.choice(3, p=[0.6, 0.3, 0.1])
+        lo = LYMAN_LIMIT * (1 + z_qso[i]) / LYA_WAVELENGTH - 1 + params.min_z_cut
+        hi = params.null_model.max_lambda * (1 + z_qso[i]) / LYA_WAVELENGTH - 1 - params.max_z_cut
+        zs = np.sort(rng.uniform(lo, hi - 0.05, k))
+        if k == 2 and zs[1] - zs[0] < 0.05:
+            zs[1] = zs[0] + 0.05
+        for z in zs:
+            truth.append((i, float(z), float(np.clip(rng.normal(20.8, 0.35), 20.3, 22.0))))
+    for name, los, rows in (
+        ("dr9q_concordance", thing_ids[:n_dr9], [t for t in truth if t[0] < n_dr9]),
+        ("dr12q_noterdaeme", thing_ids[:n_test], truth),
+        ("dr12q_visual", thing_ids[:n_test], truth),
+    ):
+        d = params.dla_catalog_directory(name)
+        d.mkdir(parents=True)
+        np.savetxt(d / "los_catalog", los, fmt="%d")
+        np.savetxt(d / "dla_catalog", np.array([(thing_ids[i], z, l) for i, z, l in rows]))
+
+    n_px = int(np.log10(1400.0 / 890.0) / 1e-4)
+    loglam = np.log10(890.0 * (1 + z_qso))[:, None] + 1e-4 * np.arange(n_px)[None, :]
+    lam = 10.0**loglam
+    rest = lam / (1 + z_qso[:, None])
+    bump = lambda c, w: np.exp(-0.5 * ((rest - c) / w) ** 2)
+    mean = 1 + 0.8 * bump(1215.67, 15.0) + 0.25 * bump(1033.0, 8.0) + 0.05 * np.sin(rest / 40.0)
+    shapes = np.stack([bump(c, w) for c, w in zip(rng.uniform(900, 1400, 6), rng.uniform(20, 80, 6))])
+    coeff = rng.normal(0, 0.08, (6, n))
+    scale = 10 ** rng.uniform(0.7, 1.3, n)[:, None]
+    continuum = scale * (mean + np.einsum("jn,jnp->np", coeff, shapes))
+    forest = rest < LYA_WAVELENGTH
+    tau = 0.0023 * (lam / LYA_WAVELENGTH) ** 3.65 * rng.lognormal(0.0, 0.7, lam.shape)
+    flux = continuum * np.where(forest, np.exp(-tau), 1.0)
+    rows = np.array([t[0] for t in truth])
+    t64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device)
+    absorption = voigt_absorption(
+        t64(extend_wavelengths(lam[rows], params.instrument)),
+        t64([[t[1]] for t in truth]), t64([[10.0 ** t[2]] for t in truth]),
+    )[:, 0, :].cpu().numpy()
+    np.multiply.at(flux, rows, absorption)   # a sightline may hold two
+    sigma = scale / snr[:, None]
+    flux = flux + sigma * rng.normal(size=flux.shape)
+
+    spec_dir = params.spectra_directory("dr12q")
+    for i in range(n):
+        plate_dir = spec_dir / str(plates[i])
+        plate_dir.mkdir(parents=True, exist_ok=True)
+        write_spec_file(
+            plate_dir / f"spec-{plates[i]}-{mjds[i]}-{fibers[i]:04d}.fits",
+            loglam[i], flux[i], np.broadcast_to(1.0 / sigma[i] ** 2, (n_px,)),
+        )
+    return np.bincount(rows, minlength=n_test)
+
+
+def run_cli_stages(argv, stages, params_factory):
+    """``python -m gp_dla_detection_tpu_torch.pipeline <argv> --stage s``
+    for each stage in turn, in this process so that the kernels' launch
+    counts can be read: per stage the wall seconds, the (single, pair)
+    launches and what it printed.  ``params_factory`` stands in for
+    ``Parameters`` inside the CLI (the L-BFGS budget cut)."""
+    import io
+
+    import gp_dla_detection_tpu_torch.pipeline as pipeline
+    from gp_dla_detection_tpu_torch.ops import evidence
+
+    seconds, launches, printed = {}, {}, {}
+    full = pipeline.Parameters
+    pipeline.Parameters = params_factory
+    try:
+        for stage in stages:
+            out = io.StringIO()
+            evidence.launch_count = 0
+            evidence.pair_launch_count = 0
+            sync()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                pipeline.main([*argv, "--stage", stage])
+            sync()
+            seconds[stage] = time.perf_counter() - t0
+            launches[stage] = (evidence.launch_count, evidence.pair_launch_count)
+            printed[stage] = out.getvalue()
+    finally:
+        pipeline.Parameters = full
+    return seconds, launches, printed
+
+
+def release_inputs(pipe):
+    """What the pipeline's multi stage hands its driver, from the stage
+    artifacts: (model, samples, test spectra, prior z, prior DLA
+    counts)."""
+    import numpy as np
+
+    from gp_dla_detection_tpu_torch.multi_dla import prior_dla_multiplicity
+
+    catalog = pipe.run_catalog()
+    spectra = pipe.run_preload(catalog)
+    model = pipe.run_learn(catalog, spectra)
+    samples = pipe.run_samples(catalog)
+    padded = pipe._padded_test_spectra(catalog, spectra, pipe.default_test_mask(catalog, spectra))
+    dc = catalog.dla_catalogs[pipe.config.dla_catalog_name]
+    prior_idx = np.flatnonzero(catalog.prior_dr9_concordance())
+    prior_num = prior_dla_multiplicity(
+        catalog.z_qsos[prior_idx], dc.dla_ind[prior_idx], [dc.z_dlas[int(i)] for i in prior_idx]
+    )
+    return model, samples, padded, catalog.z_qsos[prior_idx], prior_num
+
+
+@contextlib.contextmanager
+def recorded_reductions(sharded_multi, log: list):
+    """Copy to the host the inputs of every CDDF reduction the lean
+    driver runs (one entry per batch), without changing them.  The first
+    entry also holds the reducer's (spec, offsets, lnhis, order)."""
+    make = sharded_multi.make_cddf_reducer
+
+    def spy_make(spec, offsets, lnhis, order=None, device=None):
+        reduce_fn, consts = make(spec, offsets, lnhis, order=order, device=device)
+        log.append((spec, offsets, lnhis, order))
+
+        def spy(c, *args):
+            log.append([a.cpu() for a in args])
+            return reduce_fn(c, *args)
+
+        return spy, consts
+
+    sharded_multi.make_cddf_reducer = spy_make
+    try:
+        yield log
+    finally:
+        sharded_multi.make_cddf_reducer = make
+
+
+def replay_reductions(log, inputs, batch: int):
+    """The recorded reductions of one lean run redone on the host in
+    float64 from the same inputs, the pair columns put back in original
+    sample order (so that the replay needs no ``order`` and no index
+    translation), against what the run stored (``inputs``, a
+    CDDFInputs).  Returns (max |run - replay| / (|replay| + 1e-30) over
+    ``hist``, the same over the exact entries' probabilities, exact
+    entries with p > 0 whose indices differ, counters that differ)."""
+    import numpy as np
+    import torch
+
+    from gp_dla_detection_tpu_torch.cddf_inputs import make_cddf_reducer
+
+    (spec, offsets, lnhis, order), *batches = log
+    reduce_fn, consts = make_cddf_reducer(spec, offsets, lnhis)
+    K = spec.top_k
+    rel = lambda a, b: float(np.max(np.abs(a - b) / (np.abs(b) + 1e-30), initial=0.0))
+    hist_err = p_err = 0.0
+    bad_idx = bad_counts = 0
+    for bi, args in enumerate(batches):
+        *head, lls2, ev2, base = args
+        if order is not None:
+            cols = torch.as_tensor(order)
+            lls2_o, base_o = torch.empty_like(lls2), torch.empty_like(base)
+            lls2_o[:, cols], base_o[:, cols] = lls2, base
+            lls2, base = lls2_o, base_o
+        hist, ex = reduce_fn(consts, *head, lls2, ev2, base)
+        rows = slice(bi * batch, min((bi + 1) * batch, len(inputs.hist)))
+        n = rows.stop - rows.start
+        ref_h, ref_ex = hist.numpy()[:n].astype(np.float64), ex.numpy()[:n]
+        run_ex = inputs.ex[rows]
+        hist_err = max(hist_err, rel(inputs.hist[rows].astype(np.float64), ref_h))
+        for p_blk, idx_blks in ((0, (1,)), (2, (3, 4))):
+            live = ref_ex[:, p_blk * K : (p_blk + 1) * K] > 0
+            blk = lambda e, b: e[:, b * K : (b + 1) * K]
+            p_err = max(p_err, rel(blk(run_ex, p_blk)[live].astype(np.float64),
+                                   blk(ref_ex, p_blk)[live].astype(np.float64)))
+            for b in idx_blks:
+                bad_idx += int((blk(run_ex, b) != blk(ref_ex, b))[live].sum())
+        bad_counts += int((run_ex[:, 5 * K :] != ref_ex[:, 5 * K :]).sum())
+    return hist_err, p_err, bad_idx, bad_counts
+
+
+def stat_deviation(a, b) -> float:
+    """Max relative deviation of b from a over every array of one
+    statistic, each entry against max(|a|, 1e-3 max |a|)
+    (validation/lean_cddf_ab.py's measure)."""
+    import numpy as np
+
+    worst = 0.0
+    for x, y in zip(a, b):
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        if x.size:
+            denom = np.maximum(np.abs(x), np.abs(x).max() * 1e-3 + 1e-300)
+            worst = max(worst, float(np.max(np.abs(y - x) / denom)))
+    return worst
+
+
+def exact_entry_mismatches(a, b, p_switch: float) -> int:
+    """Exact CDDF entries (p >= p_switch) in one reduction and not the
+    other, per spectrum, ignoring knife edges: an entry whose p lies
+    within KNIFE_EDGE (relative) of p_switch may fall on either side.
+    ``a``, ``b``: (N, K) probabilities and (N, K) index keys."""
+    import numpy as np
+
+    (pa, ka), (pb, kb) = a, b
+    bad = 0
+    for i in range(len(pa)):
+        sa = {int(k): p for k, p in zip(ka[i], pa[i]) if p >= p_switch}
+        sb = {int(k): p for k, p in zip(kb[i], pb[i]) if p >= p_switch}
+        for k in set(sa) ^ set(sb):
+            p = sa.get(k, sb.get(k))
+            bad += p >= p_switch * (1 + KNIFE_EDGE)
+    return bad
+
+
+def nonfinite_json(x, path: str = "") -> list[str]:
+    """Where a JSON value holds a number that is not finite."""
+    import numpy as np
+
+    if isinstance(x, dict):
+        return [p for k, v in x.items() for p in nonfinite_json(v, f"{path}.{k}")]
+    if isinstance(x, list):
+        return [p for i, v in enumerate(x) for p in nonfinite_json(v, f"{path}[{i}]")]
+    return [path] if isinstance(x, float) and not np.isfinite(x) else []
+
+
+def sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def release_parameters(**kw):
+    """The CLI's ``Parameters`` with the L-BFGS budget cut to
+    RELEASE_LBFGS."""
+    from gp_dla_detection_tpu_torch.params import OptimizationParams, Parameters
+
+    iters, evals = RELEASE_LBFGS
+    return dataclasses.replace(
+        Parameters(**kw),
+        optimization=OptimizationParams(max_iterations=iters, max_fun_evals=evals),
+    )
+
+
+def release_phase(seed: int, smi: str, chain, device: str = "cuda", backend: str = "cuda") -> dict:
+    """Phase 7: the one-command catalogue release on the card.
+
+    ``chain``: (model, offsets, nhis, spectra, prior z, prior DLA counts,
+    params) of phase 6, for the chain's rate with and without the CDDF
+    reduction.  ``device``/``backend`` are the card and the kernels; the
+    float64 references run the plain path on the same device.  Returns
+    what the kernels line reports."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import gp_dla_detection_tpu_torch.parallel.sharded_multi as sharded_multi
+    from gp_dla_detection_tpu_torch.cddf_inputs import CH_P, CH_SMALL2_A
+
+    # ---- the lean chain with and without the reduction, in turns
+    *chain_args, chain_params = chain
+    n_chain = len(chain_args[3])
+    rates = {False: [], True: []}
+    catalogues = {}
+    for cddf in (False, True, True, False):
+        sync()
+        t0 = time.perf_counter()
+        res = sharded_multi.process_spectra_multi_lean(
+            *chain_args, params=chain_params, batch_size=BATCH, dtype=torch.float32,
+            backend=backend, store_cddf_inputs=cddf,
+        )
+        sync()
+        rates[cddf].append(n_chain / (time.perf_counter() - t0))
+        catalogues[cddf] = res.model_posteriors
+    if not np.array_equal(catalogues[False], catalogues[True]):
+        fail("the CDDF reduction changed the lean chain's posteriors")
+    off_rate, on_rate = np.mean(rates[False]), np.mean(rates[True])
+    say(f"phase 7: lean chain (cuda, float32, R=4) on phase 6's {n_chain} spectra, in turns "
+        f"off/on/on/off: without the CDDF reduction {rates[False][0]:.1f} / {rates[False][1]:.1f}, "
+        f"with it {rates[True][0]:.1f} / {rates[True][1]:.1f} spectra/s "
+        f"({(on_rate / off_rate - 1) * 100:+.1f} %); same posteriors ({smi})")
+
+    iters, evals = RELEASE_LBFGS
+    with tempfile.TemporaryDirectory(prefix="gpdla_release_") as tmp:
+        tmp = Path(tmp)
+        data, work = tmp / "data", tmp / "run"
+        t0 = time.perf_counter()
+        truth = write_release(data, seed, torch.device(device), RELEASE_TEST, RELEASE_DR9)
+        say(f"phase 7: wrote a synthetic release of {RELEASE_TEST + 8} quasars "
+            f"({RELEASE_TEST} test, {RELEASE_DR9} DR9, {int((truth > 0).sum())} with DLAs, "
+            f"{int((truth == 2).sum())} with two) in {time.perf_counter() - t0:.1f} s")
+
+        # ---- the CLI, stage by stage, as a user resumes it
+        argv = ["--workdir", str(work), "--base-directory", str(data), "--backend", backend,
+                "--device", device, "--lean", "--multi-dla", "--cddf-inputs",
+                "--per-device-batch", str(BATCH)]
+        stages = ("catalog", "preload", "learn", "samples", "process", "multi", "all")
+        seconds, launches, printed = run_cli_stages(argv, stages, release_parameters)
+        n_batches = -(-RELEASE_TEST // BATCH)
+        expected = {s: (0, 0) for s in stages}
+        expected.update(process=(n_batches, 0), multi=(n_batches, n_batches))
+        if launches != expected:
+            fail(f"release: (single, pair) launches per stage {launches}, expected {expected}")
+        summary = json.loads(printed["all"])
+        from gp_dla_detection_tpu_torch.models.qso_model import GPModel
+        from gp_dla_detection_tpu_torch.pipeline import Pipeline, PipelineConfig
+
+        config = lambda workdir, **kw: PipelineConfig(
+            workdir=str(workdir), backend=backend, device=device, multi_dla=True,
+            per_device_batch=BATCH, **kw,
+        )
+        params = release_parameters(base_directory=str(data))
+        pipe = Pipeline(params, config(work, store_sample_likelihoods=False, cddf_inputs=True))
+        meta = GPModel.load(pipe.model_path).metadata
+        say("phase 7: python -m gp_dla_detection_tpu_torch.pipeline " + " ".join(argv[4:])
+            + ", stage by stage (wall s): " + ", ".join(f"{s} {seconds[s]:.2f}" for s in stages)
+            + f"; learn on {RELEASE_DR9 - int((truth[:RELEASE_DR9] > 0).sum())} sightlines, "
+            f"L-BFGS budget cut to {iters} iterations / {evals} evaluations: used "
+            f"{meta['iterations']} / {meta['fun_evals']} ({meta['termination']}); "
+            f"'all' = SNRs + ASCII + analysis; (single, pair) launches: process "
+            f"{launches['process']}, multi {launches['multi']} for {n_batches} batches ({smi})")
+
+        with np.load(pipe.multi_results_path) as f:
+            post = f["multi_model_posteriors"]
+        stats = json.loads((work / "analysis" / "statistics.json").read_text())
+        ok_rows = np.isfinite(post).all(axis=1)
+        picks = np.argmax(np.where(ok_rows[:, None], post, -1.0), axis=1)
+        say(f"phase 7: {summary['num_processed']} processed; posteriors finite in "
+            f"{int(ok_rows.sum())} rows, max |sum - 1| "
+            f"{np.abs(post[ok_rows].sum(axis=1) - 1).max():.2e}; 3-class picks "
+            f"{np.bincount(picks[ok_rows], minlength=3).tolist()} vs truth "
+            f"{np.bincount(truth, minlength=3).tolist()}, exact multiplicity "
+            f"{(picks == np.minimum(truth, 2))[ok_rows].mean():.3f}; statistics.json "
+            f"lean_inputs={stats['lean_inputs']}, not finite at {nonfinite_json(stats)}")
+        if summary["num_processed"] != RELEASE_TEST:
+            fail(f"release processed {summary['num_processed']} of {RELEASE_TEST} spectra")
+        if ok_rows.mean() < 0.95 or not np.allclose(post[ok_rows].sum(axis=1), 1.0, rtol=0, atol=1e-9):
+            fail("release posteriors are not finite or do not sum to 1")
+        if not stats["lean_inputs"] or nonfinite_json(stats):
+            fail("release statistics.json is not finite or not from the lean inputs")
+
+        # ---- the float32 CUDA reduction vs the float64 plain one (R = 1)
+        model, samples, padded, prior_z, prior_num = release_inputs(pipe)
+        sub = padded.slice(slice(0, F64_SUBSET))
+        reduced = {}
+        for name, dtype, be in (("f32", torch.float32, backend), ("f64", torch.float64, "torch")):
+            reduced[name] = sharded_multi.process_spectra_multi_lean(
+                model.to(dtype=dtype), samples.offset_samples, samples.nhi_samples, sub,
+                prior_z, prior_num, params=params, batch_size=F64_SUBSET, sample_chunk=500,
+                dtype=dtype, backend=be, base_replicates=1, store_cddf_inputs=True,
+            )
+        mass_err = {}
+        for name, r in reduced.items():
+            keep = r.single.p_dlas > 0.05
+            mass = r.cddf_inputs.hist[keep, CH_P].astype(np.float64).sum((1, 2))
+            mass_err[name] = float(np.max(np.abs(mass / r.single.p_dlas[keep] - 1), initial=0.0))
+        a, b = reduced["f32"].cddf_inputs, reduced["f64"].cddf_inputs
+        S = len(samples.offset_samples)
+        p_switch = a.spec.p_switch
+        bad1 = exact_entry_mismatches((a.ex1_p, a.ex1_idx), (b.ex1_p, b.ex1_idx), p_switch)
+        bad2 = exact_entry_mismatches(
+            (a.ex2_p, a.ex2_idx * S + a.ex2_base), (b.ex2_p, b.ex2_idx * S + b.ex2_base), p_switch
+        )
+        n_exact = int((b.ex1_p >= p_switch).sum()), int((b.ex2_p >= p_switch).sum())
+        say(f"phase 7: CDDF reduction f32 cuda vs f64 torch (R=1) on {F64_SUBSET} release spectra: "
+            f"mass channel vs p_DLA max rel {mass_err['f32']:.2e} (f32) / {mass_err['f64']:.2e} "
+            f"(f64); exact entries (f64: {n_exact[0]} first-DLA, {n_exact[1]} second-DLA) "
+            f"differing away from knife edges: {bad1} first, {bad2} second")
+        if not max(mass_err.values()) < MASS_RTOL:
+            fail(f"the CDDF mass channel misses p_DLA: {mass_err}")
+        if bad1 or bad2:
+            fail("the float32 CUDA reduction's exact entries differ from the float64 ones")
+
+        # ---- the statistics against the classic full-matrix run: lean R=1
+        # (gated), and the release's R = 4 read against the scatter of the
+        # base redraw (R = 1 and R = 4 at other base seeds)
+        def side_run(name, **kw):
+            side = tmp / name
+            side.mkdir()
+            for f in (pipe.catalog_path, pipe.preloaded_path, pipe.model_path, pipe.samples_path):
+                shutil.copy(f, side / f.name)
+            Pipeline(params, config(side, **kw)).run_all()
+            return json.loads((side / "analysis" / "statistics.json").read_text())
+
+        def redraw(R, seed):
+            res = sharded_multi.process_spectra_multi_lean(
+                model.to(dtype=torch.float32), samples.offset_samples, samples.nhi_samples,
+                padded, prior_z, prior_num, params=params, batch_size=BATCH,
+                dtype=torch.float32, backend=backend, base_replicates=R, base_seed=seed,
+                store_cddf_inputs=True,
+            )
+            side = tmp / f"redraw_R{R}_seed{seed}"
+            side.mkdir()
+            for f in (pipe.samples_path, work / "snrs.npz"):
+                shutil.copy(f, side / f.name)
+            res.save(side / pipe.multi_results_path.name)
+            lean = Pipeline(params, config(side, store_sample_likelihoods=False, cddf_inputs=True))
+            return res, lean.run_analysis(plots=False)
+
+        t0 = time.perf_counter()
+        classic = side_run("classic")
+        lean1 = side_run("lean1", store_sample_likelihoods=False, cddf_inputs=True, base_replicates=1)
+        side_s = time.perf_counter() - t0
+        fields = {
+            "cddf": ("f_N", "ci68", "ci95"),
+            "line_density": ("dN_dX", "ci68", "ci95"),
+            "omega_dla_direct": ("omega", "err"),
+            "omega_dla_cddf": ("omega", "ci68", "ci95"),
+        }
+        dev = lambda ref, s: {k: stat_deviation([ref[k][f] for f in fs], [s[k][f] for f in fs])
+                              for k, fs in fields.items()}
+        dev1, dev4 = dev(classic, lean1), dev(classic, stats)
+        say(f"phase 7: statistics vs the classic full-matrix run (cuda, float32; {side_s:.1f} s for "
+            f"both side runs), max rel: lean R=1 "
+            + ", ".join(f"{k} {v:.2e}" for k, v in dev1.items())
+            + "; the release (R=4) " + ", ".join(f"{k} {v:.2e}" for k, v in dev4.items())
+            + "; bounds (R=1) " + ", ".join(f"{k} {v:.1e}" for k, v in STAT_BOUNDS.items()))
+        for k, bound in STAT_BOUNDS.items():
+            if not dev1[k] <= bound:
+                fail(f"lean R=1 {k} deviates {dev1[k]:.3e} from classic (bound {bound:.1e})")
+
+        t0 = time.perf_counter()
+        redrawn, logs = {}, {}
+        for R, seed in REDRAWS:
+            with recorded_reductions(sharded_multi, logs.setdefault((R, seed), [])):
+                redrawn[R, seed] = redraw(R, seed)
+        redraw_s = time.perf_counter() - t0
+        redraws = {key: dev(classic, s) for key, (_, s) in redrawn.items()}
+        spread = lambda R: ", ".join(
+            f"{k} " + "/".join(f"{d[k]:.2e}" for (r, _), d in redraws.items() if r == R)
+            for k in fields
+        )
+        again = dev(stats, redrawn[4, 0][1])
+        say(f"phase 7: the base redraw's scatter, statistics vs classic (max rel, per base seed; "
+            f"{len(REDRAWS)} lean runs of {len(padded)} spectra with the analysis in "
+            f"{redraw_s:.1f} s): R=1 seeds {[s for r, s in REDRAWS if r == 1]}: {spread(1)}; "
+            f"R=4 seeds {[s for r, s in REDRAWS if r == 4]}: {spread(4)}; R=4 seed 0 again vs "
+            f"the release: " + ", ".join(f"{k} {v:.2e}" for k, v in again.items()))
+        if not max(again.values()) <= 1e-6:
+            fail(f"the driver at R=4, seed 0 does not reproduce the release's statistics: {again}")
+
+        # ---- the device reductions of the seed-0 runs redone on the host
+        # from their recorded inputs: at R = 4 the base-column scatter and
+        # the z-sorted pair axis's index translation do real work
+        for R in (1, 4):
+            res = redrawn[R, 0][0]
+            hist_err, p_err, bad_idx, bad_counts = replay_reductions(
+                logs[R, 0], res.cddf_inputs, BATCH
+            )
+            n_second = int((res.cddf_inputs.ex2_p >= res.cddf_inputs.spec.p_switch).sum())
+            small2 = float(res.cddf_inputs.hist[:, CH_SMALL2_A].astype(np.float64).sum())
+            say(f"phase 7: the R={R} run's {len(logs[R, 0]) - 1} device reductions (cuda, the "
+                f"z-sorted pair axis) vs the float64 host reducer on their recorded inputs (pair "
+                f"columns put back in sample order): hist max rel {hist_err:.2e}, exact-entry p max "
+                f"rel {p_err:.2e}, indices differing {bad_idx}, counters differing {bad_counts}; "
+                f"{n_second} second-DLA exact entries, small-p second-DLA mass {small2:.4f}")
+            if not (hist_err <= REPLAY_RTOL and p_err <= REPLAY_RTOL) or bad_idx or bad_counts:
+                fail(f"the R={R} device reduction disagrees with the host reducer on its inputs")
+    say("phase 7 ok")
+    return {
+        "launches": launches,
+        "stage_seconds": seconds,
+        "cddf_off_spectra_per_s": off_rate,
+        "cddf_on_spectra_per_s": on_rate,
+    }
 
 
 def kernel_inputs(w, params, offsets, nhis, n, device, dtype, num_lines=3):
@@ -528,14 +1096,24 @@ def main() -> None:
         fail("lean pair evidences disagree with the float64 classic driver")
     say("phase 6 ok")
 
-    # ---- phase 7: results
+    # ---- phase 7: the one-command release
+    release = release_phase(
+        args.seed, smi,
+        (model, samples.offset_samples, samples.nhi_samples, spectra2, prior_z, prior_num, params),
+    )
+    rl = release["launches"]
+
+    # ---- phase 8: results
     say(json.dumps({"kernels": [
         {
             "name": "evidence_single_f32",
             "route": "cuda",
             "source": "gp_dla_detection_tpu_torch/csrc/evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/evidence_pallas.py:106",
-            "launches": lean_launches[0],
+            "launches": rl["process"][0] + rl["multi"][0],
+            "launches_release_process": rl["process"][0],
+            "launches_release_multi": rl["multi"][0],
+            "launches_lean_chain": lean_launches[0],
             "launches_process_spectra": launches,
             "max_abs_err": worst[1],
             "max_normalized_err": worst[0],
@@ -549,12 +1127,16 @@ def main() -> None:
             "route": "cuda",
             "source": "gp_dla_detection_tpu_torch/csrc/evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/evidence_pallas.py:106",
-            "launches": lean_launches[1],
+            "launches": rl["multi"][1],
+            "launches_lean_chain": lean_launches[1],
             "max_abs_err": pair_worst[1],
             "max_normalized_err": pair_worst[0],
             "ms": pair_ms,
             "plain_ms": pair_plain_ms,
             "lean_chain_spectra_per_s": lean_rate,
+            "lean_chain_cddf_off_spectra_per_s": release["cddf_off_spectra_per_s"],
+            "lean_chain_cddf_on_spectra_per_s": release["cddf_on_spectra_per_s"],
+            "release_stage_seconds": release["stage_seconds"],
             "card": smi,
         },
     ]}))

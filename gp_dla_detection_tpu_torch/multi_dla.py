@@ -31,6 +31,7 @@ import torch
 from gp_dla_detection_tpu.params import LYA_WAVELENGTH, LYMAN_LIMIT, Parameters, kms_to_z
 from gp_dla_detection_tpu.utils.atomic_io import atomic_savez, atomic_write_json
 
+from .cddf_inputs import CDDFInputs
 from .inference import (
     _NUMPY_DTYPES,
     BACKENDS,
@@ -422,10 +423,11 @@ def batch_dla2_log_likelihoods(
 @dataclasses.dataclass
 class MultiDLAResults:
     """Single + two-DLA model selection outputs, with the JAX package's
-    fields and npz keys (CDDF inputs are not ported yet).
+    fields and npz keys.
 
     Lean (catalog-only) runs carry None for both (N, S) matrices and
-    hold the device-reduced MAP indices instead.
+    hold the device-reduced MAP indices instead, and with
+    ``store_cddf_inputs`` the device-reduced CDDF inputs.
     """
 
     single: InferenceResults
@@ -441,6 +443,10 @@ class MultiDLAResults:
     # sample index there, in ORIGINAL sample numbering; -1 = no valid pair
     map_sample_inds2: np.ndarray | None = None
     map_base_sample_inds: np.ndarray | None = None
+    # device-reduced CDDF inputs (cddf_inputs.CDDFInputs) of a lean run
+    # with store_cddf_inputs: the L7 statistics run from them
+    # (analysis.lean_catalogue.LeanDLACatalogue) without the matrices
+    cddf_inputs: CDDFInputs | None = None
 
     # the only keys save() may omit; any other missing key is a corrupt
     # or incompatible artifact
@@ -474,19 +480,14 @@ class MultiDLAResults:
                 if getattr(self, attr) is not None
             }
         )
+        if self.cddf_inputs is not None:
+            payload.update(self.cddf_inputs.to_npz_dict())
         # atomic and uncompressed, as the JAX package writes it
         atomic_savez(path, compress=False, **payload)
 
     @classmethod
     def load(cls, path: str | Path) -> "MultiDLAResults":
         with np.load(Path(path)) as f:
-            cddf = [k for k in f.files if k.startswith("cddf_")]
-            if cddf:
-                raise ValueError(
-                    f"{path} carries CDDF inputs ({cddf}), which this package "
-                    "does not read yet; load it with the JAX package's "
-                    "MultiDLAResults.load"
-                )
             missing = [
                 key
                 for key in cls._MULTI_KEYS
@@ -497,7 +498,11 @@ class MultiDLAResults:
                     f"{path} is not a two-DLA results artifact: missing {missing}"
                 )
             single = InferenceResults(
-                **{k: f[k] for k in f.files if k not in cls._MULTI_KEYS},
+                **{
+                    k: f[k]
+                    for k in f.files
+                    if k not in cls._MULTI_KEYS and not k.startswith("cddf_")
+                },
                 **{
                     name: None
                     for name in InferenceResults._OPTIONAL_FIELDS
@@ -506,6 +511,9 @@ class MultiDLAResults:
             )
             return cls(
                 single=single,
+                cddf_inputs=(
+                    CDDFInputs.from_npz_dict(f) if CDDFInputs.npz_present(f.files) else None
+                ),
                 **{
                     attr: (f[key] if key in f.files else None)
                     for key, attr in cls._MULTI_KEYS.items()
@@ -518,6 +526,7 @@ def finalize_multi_from_evidence(
     params: Parameters,
     map_sample_inds2=None,
     map_base_sample_inds=None,
+    cddf_inputs=None,
 ) -> MultiDLAResults:
     """3-model posteriors from already-aggregated pair evidences (the
     lean runs, whose (N, S) matrices never reach the host)."""
@@ -535,6 +544,7 @@ def finalize_multi_from_evidence(
         model_posteriors=model_posteriors,
         map_sample_inds2=map_sample_inds2,
         map_base_sample_inds=map_base_sample_inds,
+        cddf_inputs=cddf_inputs,
     )
 
 

@@ -14,20 +14,27 @@ spectra, on the device:
 5. the pair evidences (``multi_dla.batch_dla2_log_likelihoods``, on the
    z-sorted fresh axis under ``"cuda"``);
 6. the pair evidence, MAP pair and MAP base index
-   (``multi_dla.pack_lean_pair``).
+   (``multi_dla.pack_lean_pair``);
+7. optionally the CDDF inputs (``cddf_inputs.make_cddf_reducer``).
 
-Only eight per-spectrum vectors reach the host, which translates the MAP
-pair index back to original sample numbering, forms the posteriors and
-keeps one checkpoint stream.  The (N, S) matrices never exist on the
-host, so the results carry None for them.
+Only eight per-spectrum vectors (and the CDDF reductions) reach the
+host, which translates the pair indices back to original sample
+numbering, forms the posteriors and keeps one checkpoint stream.  The
+(N, S) matrices never exist on the host, so the results carry None for
+them.
 
-Not ported: the mesh and ``shard_map``, the degradation ladders, the
-threaded upload overlap and the CDDF-input reduction.
+:func:`process_spectra_multi_sharded` is the driver the pipeline calls:
+the lean chain, or the classic two-pass flow with the single stage's
+checkpoints under ``<checkpoint_dir>/single`` and the pair stage's under
+``<checkpoint_dir>/pair``.
+
+Not ported: the mesh and ``shard_map`` (ROADMAP A.10), the degradation
+ladders and the threaded upload overlap.
 """
 
 from __future__ import annotations
 
-import json
+import dataclasses
 import warnings
 from pathlib import Path
 
@@ -37,6 +44,7 @@ import torch
 from gp_dla_detection_tpu.params import Parameters, kms_to_z
 from gp_dla_detection_tpu.utils.atomic_io import atomic_savez, atomic_write_json
 
+from ..cddf_inputs import N_CHANNELS, CDDFInputs, CDDFReductionSpec, make_cddf_reducer
 from ..inference import (
     _NUMPY_DTYPES,
     BACKENDS,
@@ -54,12 +62,19 @@ from ..multi_dla import (
     batch_dla2_log_likelihoods,
     device_inverse_cdf_grid,
     finalize_multi_from_evidence,
+    multi_dla_rate_priors,
     pack_lean_pair,
     packed_base_tables,
+    process_spectra_multi,
     replicate_draw_pattern,
 )
 from ..ops import evidence
-from .sharded_inference import run_fingerprint
+from .sharded_inference import (
+    ShardedRunConfig,
+    process_spectra_sharded,
+    read_manifest,
+    run_fingerprint,
+)
 from .streaming import pack_lean
 
 __all__ = [
@@ -67,6 +82,7 @@ __all__ = [
     "PATTERN_TILE",
     "lean_base_columns",
     "process_spectra_multi_lean",
+    "process_spectra_multi_sharded",
 ]
 
 # base_replicates=None resolves to this under backend="cuda": the JAX
@@ -129,6 +145,7 @@ def process_spectra_multi_lean(
     min_separation_kms: float = 3000.0,
     checkpoint_dir=None,
     progress: bool = False,
+    store_cddf_inputs: bool = False,
 ) -> MultiDLAResults:
     """Lean (catalog-only) {0,1,2}-DLA selection: both stages per batch
     on one device (see the module docstring).
@@ -143,6 +160,8 @@ def process_spectra_multi_lean(
     ``<checkpoint_dir>/fused`` with a manifest and a fingerprint (R
     included when R != 1); a rerun resumes completed batches and ignores,
     with a warning, checkpoints of another run or of the JAX package.
+    ``store_cddf_inputs``: also reduce the CDDF inputs in each batch
+    (checkpointed with it); the results then carry ``cddf_inputs``.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
@@ -177,6 +196,11 @@ def process_spectra_multi_lean(
     offsets = np.asarray(offset_samples)
     nhis = np.asarray(nhi_samples)
     S = len(offsets)
+    if store_cddf_inputs and S >= 1 << 24:
+        raise ValueError(
+            f"the CDDF reduction stores sample indices at the run dtype, "
+            f"exact below 2**24 samples (got {S})"
+        )
     n = len(spectra)
     min_sep_z = kms_to_z(min_separation_kms)
     prior_num = np.asarray(prior_num_dlas)
@@ -213,35 +237,55 @@ def process_spectra_multi_lean(
     cols_dev = torch.as_tensor(cols, device=device)
     base_tables = on_device(packed_base_tables(offsets, nhis, _NUMPY_DTYPES[dtype]))
 
+    cddf_spec = None
+    if store_cddf_inputs:
+        cddf_spec = CDDFReductionSpec()
+        # the reduction's lnhi tables come from log10 of the linear N_HI
+        # samples, as in the JAX package (within 1 ulp of the stored
+        # log_nhi_samples the host statistics rebind against)
+        cddf_reduce, cddf_consts = make_cddf_reducer(
+            cddf_spec, offsets, np.log10(nhis), order=order, device=device
+        )
+        log_p0m, log_p1m, log_p2m = multi_dla_rate_priors(
+            spectra.z_qso, prior_z_qsos, prior_num, params
+        )
+        host_hist = np.empty(
+            (n, N_CHANNELS, cddf_spec.n_z_window, cddf_spec.n_lnhi + 1),
+            _NUMPY_DTYPES[dtype],
+        )
+        host_ex = np.empty((n, 5 * cddf_spec.top_k + 4), _NUMPY_DTYPES[dtype])
+
     ckpt_dir = Path(checkpoint_dir) / "fused" if checkpoint_dir else None
     manifest_path = ckpt_dir / "manifest.json" if ckpt_dir else None
-    # R > 1 draws on another grid: a distinct numerics configuration
+    # R > 1 draws on another grid: a distinct numerics configuration; a
+    # CDDF run fingerprints the reduction spec (its grids determine the
+    # stored hist, and other runs' checkpoints lack it)
     fingerprint = run_fingerprint(
         dtype, backend, params, model, offsets, nhis,
         extra=(
             [min_sep_z, float(base_seed), float(sample_chunk)]
             + ([float(R)] if R != 1 else []),
             spectra.z_qso,
+        )
+        + (
+            (np.frombuffer(cddf_spec.token().encode(), np.uint8),)
+            if store_cddf_inputs
+            else ()
         ),
     )
-    done: set = set()
-    if manifest_path and manifest_path.exists():
-        manifest = json.loads(manifest_path.read_text())
-        if (
-            manifest.get("num_spectra") == n
-            and manifest.get("batch_size") == batch_size
-            and manifest.get("num_samples") == S
-            and manifest.get("fingerprint") == fingerprint
-        ):
-            done = set(manifest["completed_batches"])
-        else:
-            warnings.warn(
-                f"ignoring incompatible fused two-stage checkpoints in "
-                f"{ckpt_dir} (run shape or numerics config changed)",
-                stacklevel=2,
-            )
+    expect = {
+        "num_spectra": n, "batch_size": batch_size, "num_samples": S,
+        "fingerprint": fingerprint,
+    }
+    done = read_manifest(manifest_path, expect, "fused two-stage")
     if ckpt_dir:
         ckpt_dir.mkdir(parents=True, exist_ok=True)
+
+    def batch_vec(a, start, stop):
+        """Rows start:stop of a per-spectrum host vector on the device,
+        padded like the batch (the last row repeated)."""
+        v = np.asarray(a[start:stop])
+        return on_device(np.concatenate([v, np.repeat(v[-1:], batch_size - len(v))]))
 
     host_vecs = {k: np.empty(n) for k in VEC_KEYS}
     for bi, start in enumerate(range(0, n, batch_size)):
@@ -251,6 +295,9 @@ def process_spectra_multi_lean(
             with np.load(ckpt_file) as f:
                 for k in VEC_KEYS:
                     host_vecs[k][start:stop] = f[k]
+                if store_cddf_inputs:
+                    host_hist[start:stop] = f["cddf_hist"]
+                    host_ex[start:stop] = f["cddf_ex"]
             continue
         batch = spectra.slice(slice(start, stop)).pad_to(batch_size)
         spec = (
@@ -274,6 +321,18 @@ def process_spectra_multi_lean(
             sample_window=window, sample_chunk=sample_chunk,
         )
         ev2, map2, map_base = pack_lean_pair(lls2, base_cols)
+        cddf = {}
+        if store_cddf_inputs:
+            hist, ex = cddf_reduce(
+                cddf_consts, sll, ev1, out1["log_likelihood_no_dla"],
+                out1["min_z_dla"], out1["max_z_dla"],
+                *(batch_vec(a, start, stop) for a in (
+                    log_p_no_dla, log_p_dla, log_p0m, log_p1m, log_p2m
+                )),
+                lls2, ev2, base_cols,
+            )
+            cddf = {"cddf_hist": hist.cpu().numpy()[: stop - start],
+                    "cddf_ex": ex.cpu().numpy()[: stop - start]}
         small = (
             out1["log_likelihood_no_dla"], out1["min_z_dla"], out1["max_z_dla"],
             ev1, map1, ev2, map2, map_base,
@@ -290,21 +349,24 @@ def process_spectra_multi_lean(
             # sample numbering (the base index already is)
             map2_i = vecs[6].astype(np.int64)
             vecs[6] = np.where(map2_i >= 0, order[np.maximum(map2_i, 0)], -1).astype(np.float64)
+            if cddf:
+                # so are the exact second-DLA pair indices (the base and
+                # first-DLA indices already are original)
+                K = cddf_spec.top_k
+                blk = cddf["cddf_ex"][:, 3 * K : 4 * K]
+                pidx = blk.astype(np.int64)
+                blk[...] = np.where(pidx >= 0, order[np.maximum(pidx, 0)], -1)
         for k, v in zip(VEC_KEYS, vecs):
             host_vecs[k][start:stop] = v
+        if cddf:
+            host_hist[start:stop] = cddf["cddf_hist"]
+            host_ex[start:stop] = cddf["cddf_ex"]
         if ckpt_file:
-            atomic_savez(ckpt_file, compress=False, **dict(zip(VEC_KEYS, vecs)))
+            atomic_savez(ckpt_file, compress=False, **dict(zip(VEC_KEYS, vecs)), **cddf)
             done.add(bi)
             atomic_write_json(
                 manifest_path,
-                {
-                    "num_spectra": n,
-                    "batch_size": batch_size,
-                    "num_samples": S,
-                    "base_seed": base_seed,
-                    "fingerprint": fingerprint,
-                    "completed_batches": sorted(done),
-                },
+                {**expect, "base_seed": base_seed, "completed_batches": sorted(done)},
             )
         if progress:
             print(f"fused two-stage: {stop}/{n} spectra", flush=True)
@@ -328,6 +390,10 @@ def process_spectra_multi_lean(
         p_no_dlas=post["p_no_dlas"],
         p_dlas=post["p_dlas"],
     )
+    cddf_out = None
+    if store_cddf_inputs:
+        cddf_out = CDDFInputs(spec=cddf_spec, hist=host_hist, ex=host_ex, second=True)
+        cddf_out.validate()
     # rows with no valid pair keep NaN evidence, as finalize_multi's
     # np.nanmax of an all-NaN row does
     return finalize_multi_from_evidence(
@@ -335,4 +401,97 @@ def process_spectra_multi_lean(
         prior_z_qsos, prior_num, params,
         map_sample_inds2=host_vecs["map_sample_ind2"].astype(np.int64),
         map_base_sample_inds=host_vecs["map_base_sample_ind"].astype(np.int64),
+        cddf_inputs=cddf_out,
+    )
+
+
+def process_spectra_multi_sharded(
+    model: GPModel,
+    offset_samples,
+    nhi_samples,
+    spectra: PaddedSpectra,
+    prior_z_qsos,
+    prior_num_dlas,
+    params: Parameters | None = None,
+    config: ShardedRunConfig | None = None,
+    progress: bool = False,
+    min_separation_kms: float = 3000.0,
+    base_seed: int = 0,
+    single: InferenceResults | None = None,
+) -> MultiDLAResults:
+    """{0,1,2}-DLA model selection on one device, the counterpart of the
+    JAX driver of the same name.
+
+    ``config.store_sample_likelihoods=False``: the fused lean chain
+    (:func:`process_spectra_multi_lean`), with ``store_cddf_inputs``.
+    Otherwise the classic two-pass flow: the single stage
+    (``process_spectra_sharded``, checkpointed under
+    ``<checkpoint_dir>/single``) or ``single`` reused, then
+    ``multi_dla.process_spectra_multi`` with its pair checkpoints under
+    ``<checkpoint_dir>/pair``.
+    """
+    if params is None:
+        params = Parameters()
+    if config is None:
+        config = ShardedRunConfig()
+    dtype = config.torch_dtype()
+    device = torch.device(config.device) if config.device is not None else None
+    ckpt_root = Path(config.checkpoint_dir) if config.checkpoint_dir else None
+
+    if not config.store_sample_likelihoods:
+        if single is not None:
+            raise ValueError(
+                "the fused lean two-stage driver recomputes the single "
+                "stage on device per batch (the base resampler needs the "
+                "sample matrix, which lean results never store) — drop "
+                "`single`, or use store_sample_likelihoods=True to reuse "
+                "a precomputed full single-stage result"
+            )
+        return process_spectra_multi_lean(
+            model, offset_samples, nhi_samples, spectra, prior_z_qsos, prior_num_dlas,
+            params=params, batch_size=config.per_device_batch,
+            sample_chunk=config.sample_chunk, dtype=dtype, device=device,
+            backend=config.backend, base_replicates=config.base_replicates,
+            base_seed=base_seed, min_separation_kms=min_separation_kms,
+            checkpoint_dir=ckpt_root, progress=progress,
+            store_cddf_inputs=config.store_cddf_inputs,
+        )
+    if config.base_replicates not in (None, 1):
+        raise ValueError(
+            "base_replicates > 1 is a fused-lean-driver feature "
+            "(store_sample_likelihoods=False): the classic pair stage "
+            "resamples on the host and stores the full (N, S) base "
+            "index matrix, where draw replication has no kernel payoff"
+        )
+    if config.store_cddf_inputs:
+        raise ValueError(
+            "store_cddf_inputs is a lean-mode feature: classic "
+            "(store_sample_likelihoods=True) runs already carry the "
+            "full matrices the CDDF statistics marginalize"
+        )
+    # fail at config time, not after an hours-long single stage
+    if single is not None and single.sample_log_likelihoods_dla is None:
+        raise ValueError(
+            "two-stage {0,1,2}-DLA selection resamples the base absorber "
+            "from the single-stage sample likelihoods, which a lean "
+            "(catalog-only) run never stores — pass a non-lean "
+            "precomputed `single`, or drop both `single` and "
+            "store_sample_likelihoods to run the fused lean driver"
+        )
+    if single is None:
+        single = process_spectra_sharded(
+            model, offset_samples, nhi_samples, spectra,
+            prior_z_qsos, np.asarray(prior_num_dlas) >= 1, params=params,
+            config=dataclasses.replace(
+                config, checkpoint_dir=str(ckpt_root / "single") if ckpt_root else None
+            ),
+            progress=progress,
+        )
+    return process_spectra_multi(
+        model, offset_samples, nhi_samples, spectra, prior_z_qsos, prior_num_dlas,
+        params=params, batch_size=config.per_device_batch,
+        sample_chunk=config.sample_chunk, dtype=dtype, device=device,
+        min_separation_kms=min_separation_kms, base_seed=base_seed, single=single,
+        backend=config.backend,
+        checkpoint_dir=ckpt_root / "pair" if ckpt_root else None, progress=progress,
     )

@@ -38,6 +38,20 @@ PORT_MODULES = [
     "gp_dla_detection_tpu_torch.parallel.streaming",
     "gp_dla_detection_tpu_torch.parallel.sharded_inference",
     "gp_dla_detection_tpu_torch.parallel.sharded_multi",
+    "gp_dla_detection_tpu_torch.cddf_inputs",
+    "gp_dla_detection_tpu_torch.analysis",
+    "gp_dla_detection_tpu_torch.analysis.lean_catalogue",
+    "gp_dla_detection_tpu_torch.alias_flag",
+    "gp_dla_detection_tpu_torch.ascii_catalog",
+    "gp_dla_detection_tpu_torch.spectra",
+    "gp_dla_detection_tpu_torch.ops.pca",
+    "gp_dla_detection_tpu_torch.ops.lbfgs",
+    "gp_dla_detection_tpu_torch.models.training",
+    "gp_dla_detection_tpu_torch.pipeline",
+    "gp_dla_detection_tpu_torch.params",
+    "gp_dla_detection_tpu_torch.samples",
+    "gp_dla_detection_tpu_torch.io",
+    "gp_dla_detection_tpu_torch.utils",
 ]
 
 
@@ -59,6 +73,41 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize(
+    "port_name, jax_name, names",
+    [
+        ("params", "params", ["Parameters", "OptimizationParams", "LYA_WAVELENGTH", "LYMAN_LIMIT"]),
+        ("samples", "samples", ["DLASamples", "generate_dla_samples"]),
+        ("io", "io.fits", ["read_bintable", "write_bintable"]),
+        ("utils", "utils.synthetic", ["synthetic_workload"]),
+    ],
+)
+def test_shared_host_modules_are_the_jax_ones(port_name, jax_name, names):
+    import importlib
+
+    port = importlib.import_module(f"gp_dla_detection_tpu_torch.{port_name}")
+    ref = importlib.import_module(f"gp_dla_detection_tpu.{jax_name}")
+    assert set(names) <= set(port.__all__)
+    for name in port.__all__:
+        assert getattr(port, name) is getattr(ref, name), name
+
+
+def test_chip_smoke_imports_only_the_port():
+    # chip_smoke.py reaches the JAX package's jax-free modules only
+    # through the port's re-exports
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert "gp_dla_detection_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "gp_dla_detection_tpu"}, roots
 
 
 @pytest.mark.parametrize(

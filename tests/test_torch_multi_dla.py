@@ -28,6 +28,7 @@ from gp_dla_detection_tpu.ops.evidence_pallas import SAMPLE_TILE, pallas_sample_
 from gp_dla_detection_tpu.ops.voigt import voigt_absorption as jax_voigt
 from gp_dla_detection_tpu.params import NullModelParams, Parameters, kms_to_z
 from gp_dla_detection_tpu_torch import multi_dla as pmd
+from gp_dla_detection_tpu_torch.cddf_inputs import CDDFInputs, CDDFReductionSpec
 from gp_dla_detection_tpu_torch.inference import PaddedSpectra
 from gp_dla_detection_tpu_torch.models.qso_model import GPModel
 from gp_dla_detection_tpu_torch.ops import evidence
@@ -378,11 +379,21 @@ def test_multi_results_files_shared_with_jax(multi_runs, tmp_path):
             np.testing.assert_array_equal(getattr(x, name), getattr(y, name))
         np.testing.assert_array_equal(x.single.p_dlas, y.single.p_dlas)
         assert x.map_sample_inds2 is None and x.single.map_sample_inds is None
-    # an artifact with CDDF inputs is refused clearly, not half-read
-    with np.load(tmp_path / "port.npz") as f:
-        np.savez(tmp_path / "cddf.npz", **dict(f), cddf_hist=np.zeros(3))
-    with pytest.raises(ValueError, match="CDDF"):
-        pmd.MultiDLAResults.load(tmp_path / "cddf.npz")
+    # an artifact with CDDF inputs round-trips through both packages
+    rng = np.random.default_rng(0)
+    spec = CDDFReductionSpec()
+    n = len(ours.model_posteriors)
+    cddf = CDDFInputs(
+        spec, rng.uniform(size=(n, 8, spec.n_z_window, spec.n_lnhi + 1)),
+        np.concatenate([rng.uniform(size=(n, 5 * spec.top_k)), np.zeros((n, 4))], axis=1),
+    )
+    dataclasses.replace(ours, cddf_inputs=cddf).save(tmp_path / "cddf.npz")
+    for loaded in (pmd.MultiDLAResults.load(tmp_path / "cddf.npz"),
+                   jmd.MultiDLAResults.load(tmp_path / "cddf.npz")):
+        np.testing.assert_array_equal(loaded.cddf_inputs.hist, cddf.hist)
+        np.testing.assert_array_equal(loaded.cddf_inputs.ex, cddf.ex)
+        assert loaded.cddf_inputs.spec.token() == spec.token()
+        np.testing.assert_array_equal(loaded.model_posteriors, ours.model_posteriors)
     with np.load(tmp_path / "port.npz") as f:
         np.savez(tmp_path / "bad.npz", **{k: v for k, v in f.items() if k != "log_priors_two_dla"})
     with pytest.raises(ValueError, match="missing"):
