@@ -57,7 +57,23 @@ Phases, each reported on its own line; any failure exits non-zero:
    classic beside the scatter of the base redraw (R = 1 and R = 4 at
    other base seeds); the device reductions of the R = 1 and R = 4 runs
    redone by the float64 host reducer from their recorded inputs;
-8. print a JSON line describing both kernel configurations (times, bound,
+8. the drivers across ranks (``torch.multiprocessing``, one free port,
+   each rank's output in a file, a timeout on the wait): two gloo ranks
+   sharing the card (NCCL refuses two ranks on one GPU), then one NCCL
+   rank, run ``process_spectra_sharded`` (full and lean), the fused lean
+   chain (R = 4, CDDF inputs) and the classic flow on phase 6's spectra
+   with the defaults (the card, float32, the kernels): every rank holds
+   the whole result, bit-identical to this process's run at the same
+   per-rank batch (the CDDF reduction's float64 atomics within 1e-6), one
+   single (and one pair) launch per rank per super-batch, checkpoints
+   written by rank 0 alone and resumed by a one-rank rerun; on a data 1 x
+   sample 2 mesh the single driver within 5e-5 normalized and the
+   decision gate; the training on phase 7's release data: the device
+   L-BFGS against the host one on the card (scalar reads per evaluation
+   counted), and two gloo ranks to the one-rank NLL within 1e-6; each
+   run's wall seconds (two ranks on one card measure correctness, not
+   scaling);
+9. print a JSON line describing both kernel configurations (times, bound,
    yardstick, launches, errors, the card) and, last, a JSON line with the
    device.
 
@@ -96,6 +112,8 @@ STAT_BOUNDS = {"cddf": 2.5e-2, "line_density": 2e-3}   # lean R=1 vs classic
 REPLAY_RTOL = 1e-6           # device reduction vs the host reducer, same inputs:
                               # float64 sums in another order, stored as float32
 REDRAWS = ((1, 0), (1, 1), (1, 2), (1, 3), (4, 0), (4, 1), (4, 2), (4, 3))   # (R, base seed)
+RANK_BATCH = BATCH            # phase 8: per-rank batch (super-batch 2 x 128 on 2 ranks)
+RANK_TIMEOUT = 600            # phase 8: seconds the ranks of one spawn may take
 # the previous design's kernel times at the phase-3/5 shapes, for
 # comparison (PERF.md, PR 3's chip runs on NVIDIA H100 80GB HBM3, 700.00 W)
 PR3_MS = {"single": "72.78-72.96", "pair R=4": "91.48-91.58"}
@@ -714,6 +732,8 @@ def release_phase(seed: int, smi: str, chain, device: str = "cuda", backend: str
 
         # ---- the float32 CUDA reduction vs the float64 plain one (R = 1)
         model, samples, padded, prior_z, prior_num = release_inputs(pipe)
+        catalog = pipe.run_catalog()
+        training = pipe.training_data(catalog, pipe.run_preload(catalog))
         sub = padded.slice(slice(0, F64_SUBSET))
         reduced = {}
         for name, dtype, be in (("f32", torch.float32, backend), ("f64", torch.float64, "torch")):
@@ -836,7 +856,358 @@ def release_phase(seed: int, smi: str, chain, device: str = "cuda", backend: str
         "stage_seconds": seconds,
         "cddf_off_spectra_per_s": off_rate,
         "cddf_on_spectra_per_s": on_rate,
+        "training": training,
+        "training_params": params,
     }
+
+
+def result_arrays(res) -> dict:
+    """Every array of a driver's result (InferenceResults, or
+    MultiDLAResults with its single stage and CDDF inputs), by name."""
+    import numpy as np
+
+    single = getattr(res, "single", res)
+    out = {f.name: getattr(single, f.name) for f in dataclasses.fields(single)
+           if isinstance(getattr(single, f.name), np.ndarray)}
+    if single is not res:
+        out.update({"multi_" + f.name: getattr(res, f.name) for f in dataclasses.fields(res)
+                    if isinstance(getattr(res, f.name), np.ndarray)})
+        if res.cddf_inputs is not None:
+            out["cddf_hist"], out["cddf_ex"] = res.cddf_inputs.hist, res.cddf_inputs.ex
+    return out
+
+
+def digest(arrays: dict) -> dict:
+    """sha256 of each array's bytes, dtype and shape."""
+    import hashlib
+
+    return {k: hashlib.sha256(f"{v.dtype}{v.shape}".encode() + v.tobytes()).hexdigest()
+            for k, v in arrays.items()}
+
+
+def rank_runs(mesh, inputs, ckpt_root):
+    """The phase-8 runs of one rank on ``mesh``, each with the defaults
+    (the card, float32, the kernels): (name, thunk) pairs."""
+    from gp_dla_detection_tpu_torch.parallel.sharded_inference import (
+        ShardedRunConfig,
+        process_spectra_sharded,
+    )
+    from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi_sharded
+
+    model, offsets, nhis, spectra, prior_z, prior_num, params = inputs
+    config = lambda name, **kw: ShardedRunConfig(
+        per_device_batch=RANK_BATCH,
+        checkpoint_dir=None if ckpt_root is None else str(ckpt_root / name), **kw,
+    )
+    single = lambda name, **kw: process_spectra_sharded(
+        model, offsets, nhis, spectra, prior_z, prior_num >= 1, params=params, mesh=mesh,
+        config=config(name, **kw),
+    )
+    multi = lambda name, **kw: process_spectra_multi_sharded(
+        model, offsets, nhis, spectra, prior_z, prior_num, params=params, mesh=mesh,
+        config=config(name, **kw),
+    )
+    return [
+        ("single_full", lambda: single("single_full")),
+        ("single_lean", lambda: single("single_lean", store_sample_likelihoods=False)),
+        ("chain", lambda: multi("chain", store_sample_likelihoods=False, store_cddf_inputs=True)),
+        ("classic", lambda: multi("classic")),
+    ]
+
+
+def load_inputs(path):
+    """Phase 6's workload as saved by ``ranks_phase``: (model, offsets,
+    nhis, spectra, prior z, prior DLA counts) on the card, and the
+    release's training data."""
+    import numpy as np
+
+    from gp_dla_detection_tpu_torch.inference import PaddedSpectra
+    from gp_dla_detection_tpu_torch.models.qso_model import GPModel
+    from gp_dla_detection_tpu_torch.models.training import TrainingData
+
+    with np.load(path) as f:
+        a = {k: f[k] for k in f.files}
+    model = GPModel.from_numpy(a["grid"], a["mu"], a["M"], a["log_omega"],
+                               *a["log_params"].tolist())
+    spectra = PaddedSpectra(a["wavelengths"], a["flux"], a["noise_variance"], a["mask"],
+                            a["z_qso"])
+    training = TrainingData(**{k.removeprefix("train_"): v for k, v in a.items()
+                               if k.startswith("train_")})
+    return (model, a["offsets"], a["nhis"], spectra, a["prior_z"], a["prior_num"]), training
+
+
+def rank_worker(rank, world, addr, backend, inputs_path, params, training_params, out_dir, log):
+    """One rank of phase 8, spawned by ``ranks_phase``: joins the process
+    group, runs ``rank_runs`` on the data mesh (and with two ranks the
+    single driver on a data 1 x sample 2 mesh and the training), and
+    saves per run the wall seconds, the kernel launches, the checkpoint
+    writes and the result (its digest; rank 0 also the arrays)."""
+    import os
+
+    fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.environ["LOCAL_RANK"] = str(rank)
+    import numpy as np
+    import torch
+
+    from gp_dla_detection_tpu_torch.models.training import learn_gp_model
+    from gp_dla_detection_tpu_torch.ops import evidence
+    from gp_dla_detection_tpu_torch.parallel import sharded_inference
+    from gp_dla_detection_tpu_torch.parallel.mesh import (
+        broadcast_object,
+        fetch_global,
+        initialize_distributed,
+        make_mesh,
+        shutdown,
+    )
+    from gp_dla_detection_tpu_torch.parallel.sharded_inference import (
+        ShardedRunConfig,
+        process_spectra_sharded,
+    )
+
+    writes = [0]
+    savez = sharded_inference.atomic_savez
+
+    def counted(*a, **kw):
+        writes[0] += 1
+        return savez(*a, **kw)
+
+    sharded_inference.atomic_savez = counted
+    initialize_distributed(addr, world, rank, backend=backend)
+    try:
+        inputs, training = load_inputs(inputs_path)
+        inputs = (*inputs, params)
+        out_dir = Path(out_dir)
+        mesh = make_mesh()
+        # the collectives' and the process's first use (connections, the
+        # NCCL communicator, cuBLAS, the kernel library, the allocator)
+        # before any timed run: one untimed lean run
+        fetch_global(np.zeros(1), mesh)
+        broadcast_object(None, mesh)
+        rank_runs(mesh, inputs, None)[1][1]()
+        runs = rank_runs(mesh, inputs, out_dir / f"ckpt_{backend}")
+        if world > 1:
+            model, offsets, nhis, spectra, prior_z, prior_num, _ = inputs
+            sample_mesh = make_mesh(sample_parallelism=world)
+            runs.append(("sample_full", lambda: process_spectra_sharded(
+                model, offsets, nhis, spectra, prior_z, prior_num >= 1, params=params,
+                mesh=sample_mesh, config=ShardedRunConfig(per_device_batch=RANK_BATCH))))
+        for name, run in runs:
+            evidence.launch_count = evidence.pair_launch_count = 0
+            writes[0] = 0
+            sync()
+            t0 = time.perf_counter()
+            arrays = result_arrays(run())
+            sync()
+            seconds = time.perf_counter() - t0
+            meta = {"seconds": seconds, "launches": [evidence.launch_count, evidence.pair_launch_count],
+                    "writes": writes[0], "digest": digest(arrays)}
+            (out_dir / f"{backend}_{name}_p{rank}.json").write_text(json.dumps(meta))
+            if rank == 0:
+                np.savez(out_dir / f"{backend}_{name}.npz", **arrays)
+        if world > 1:
+            sync()
+            t0 = time.perf_counter()
+            _, res = learn_gp_model(training, training_params, mesh=mesh, optimizer="host")
+            meta = {"seconds": time.perf_counter() - t0, "f": res.f, "iterations": res.iterations,
+                    "fun_evals": res.fun_evals, "message": res.message}
+            (out_dir / f"{backend}_train_p{rank}.json").write_text(json.dumps(meta))
+    finally:
+        shutdown()
+
+
+def run_ranks(world, backend, inputs_path, params, training_params, out_dir) -> float:
+    """Spawn ``world`` ranks of ``rank_worker`` (one free port), wait for
+    them (RANK_TIMEOUT), leave none running; fail with their logs if one
+    fails.  Returns the wall seconds."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    logs = [out_dir / f"{backend}_rank{r}.log" for r in range(world)]
+    procs = [
+        ctx.Process(target=rank_worker, args=(r, world, addr, backend, str(inputs_path), params,
+                                              training_params, str(out_dir), str(logs[r])))
+        for r in range(world)
+    ]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, RANK_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    seconds = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.exitcode != 0:
+            tail = logs[r].read_text()[-3000:] if logs[r].exists() else ""
+            fail(f"phase 8: {backend} rank {r} of {world} exited with {p.exitcode}:\n{tail}")
+    return seconds
+
+
+def compare_results(got: dict, ref: dict) -> tuple[bool, float]:
+    """(every array but the CDDF reduction's bit-identical, the CDDF
+    arrays' max relative difference): the reduction sums float64 with
+    scatter_add_, whose atomics add in another order from run to run."""
+    import numpy as np
+
+    exact = sorted(got) == sorted(ref) and all(
+        np.array_equal(got[k], v, equal_nan=v.dtype.kind == "f")
+        for k, v in ref.items() if not k.startswith("cddf_")
+    )
+    cddf = max((float(np.max(np.abs(got[k].astype(np.float64) - v) / np.maximum(np.abs(v), 1e-30),
+                             initial=0.0))
+                for k, v in ref.items() if k.startswith("cddf_")), default=0.0)
+    return exact, cddf
+
+
+def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
+    """Phase 8: the drivers across ranks.  Two gloo ranks share the card
+    (NCCL refuses two ranks on one GPU), then one NCCL rank; each holds
+    the whole result, equal bit for bit to this process's run at the same
+    per-rank batch; only rank 0 writes checkpoints, which a one-rank run
+    resumes; the sample axis within the kernel bound and the decision
+    gate; training on two ranks to the one-rank NLL.  Two ranks on one
+    card measure correctness, not scaling."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gp_dla_detection_tpu_torch.models.training import learn_gp_model
+    from gp_dla_detection_tpu_torch.ops import evidence, lbfgs_device
+    from gp_dla_detection_tpu_torch.parallel.sharded_inference import (
+        ShardedRunConfig,
+        process_spectra_sharded,
+    )
+
+    *inputs, params = chain
+    model, offsets, nhis, spectra, prior_z, prior_num = inputs
+    training, training_params = release["training"], release["training_params"]
+    n_super = -(-len(spectra) // (2 * RANK_BATCH))
+    with tempfile.TemporaryDirectory(prefix="gpdla_ranks_") as tmp:
+        tmp = Path(tmp)
+        inputs_path = tmp / "inputs.npz"
+        np.savez(
+            inputs_path, grid=w["grid"], mu=w["mu"], M=w["M"], log_omega=w["log_omega"],
+            log_params=np.array([w["log_c_0"], w["log_tau_0"], w["log_beta"]]),
+            offsets=offsets, nhis=nhis, wavelengths=spectra.wavelengths, flux=spectra.flux,
+            noise_variance=spectra.noise_variance, mask=spectra.mask, z_qso=spectra.z_qso,
+            prior_z=prior_z, prior_num=prior_num,
+            **{f"train_{f.name}": getattr(training, f.name) for f in dataclasses.fields(training)},
+        )
+
+        # ---- this process, one device, at the per-rank batch, with
+        # checkpoints as the ranks write them
+        ref, ref_seconds = {}, {}
+        for name, run in rank_runs(None, (*inputs, params), tmp / "ckpt_one"):
+            sync()
+            t0 = time.perf_counter()
+            ref[name] = result_arrays(run())
+            sync()
+            ref_seconds[name] = time.perf_counter() - t0
+
+        wall = {"gloo": run_ranks(2, "gloo", inputs_path, params, training_params, tmp),
+                "nccl": run_ranks(1, "nccl", inputs_path, params, training_params, tmp)}
+        meta = lambda backend, name, r: json.loads((tmp / f"{backend}_{name}_p{r}.json").read_text())
+        with np.load(tmp / "gloo_sample_full.npz") as f:
+            sample_full = {k: f[k] for k in f.files}
+        for backend, world in (("gloo", 2), ("nccl", 1)):
+            for name in ref:
+                with np.load(tmp / f"{backend}_{name}.npz") as f:
+                    got = {k: f[k] for k in f.files}
+                metas = [meta(backend, name, r) for r in range(world)]
+                same, cddf_rel = compare_results(got, ref[name])
+                replicated = all(m["digest"] == digest(got) for m in metas)
+                pair = 1 if name == "chain" or name == "classic" else 0
+                n_batches = -(-len(spectra) // (world * RANK_BATCH))
+                want = [n_batches, pair * n_batches]
+                launches = [m["launches"] for m in metas]
+                # the classic flow checkpoints both stages
+                want_writes = [n_batches * (2 if name == "classic" else 1)] + [0] * (world - 1)
+                writes = [m["writes"] for m in metas]
+                say(f"phase 8: {name}, {world} {backend} rank(s) on {len(spectra)} spectra "
+                    f"(batch {RANK_BATCH} per rank): wall {max(m['seconds'] for m in metas):.3f} s "
+                    f"(one process: {ref_seconds[name]:.3f} s); bit-identical to one process "
+                    f"{same}" + (f" (the CDDF reduction's atomics: max rel {cddf_rel:.1e})"
+                                 if name == "chain" else "")
+                    + f", every rank holds it {replicated}; (single, pair) launches per rank "
+                    f"{launches}; checkpoint files written per rank {writes} "
+                    f"(ranks share one card: correctness, not scaling; {smi})")
+                if not same or not replicated or not cddf_rel <= REPLAY_RTOL:
+                    fail(f"phase 8: {name} on {world} {backend} rank(s) differs from one process")
+                if any(l != want for l in launches) or writes != want_writes:
+                    fail(f"phase 8: {name}: launches {launches} (want {want} per rank), "
+                         f"writes {writes} (want {want_writes})")
+
+        # ---- a one-rank rerun resumes every batch the two ranks wrote
+        evidence.launch_count = 0
+        resumed = process_spectra_sharded(
+            model, offsets, nhis, spectra, prior_z, prior_num >= 1, params=params,
+            config=ShardedRunConfig(per_device_batch=2 * RANK_BATCH,
+                                    checkpoint_dir=str(tmp / "ckpt_gloo" / "single_full")),
+        )
+        resumed_same = all(np.array_equal(v, ref["single_full"][k])
+                           for k, v in result_arrays(resumed).items())
+        say(f"phase 8: one-rank rerun on the two ranks' checkpoints ({n_super} super-batches of "
+            f"{2 * RANK_BATCH}): {evidence.launch_count} launches, results equal {resumed_same}")
+        if evidence.launch_count or not resumed_same:
+            fail("phase 8: the one-rank rerun did not resume every batch")
+
+        # ---- the sample axis: kernel bound and decision gate
+        err = normalized_error(torch.as_tensor(sample_full["sample_log_likelihoods_dla"]),
+                               torch.as_tensor(ref["single_full"]["sample_log_likelihoods_dla"]))
+        p_one, p_split = ref["single_full"]["p_dlas"], sample_full["p_dlas"]
+        flips = (p_one > 0.9) != (p_split > 0.9)
+        hard = int((flips & (np.abs(p_one - 0.9) > DECISION_MARGIN)).sum())
+        dp = np.abs(p_split - p_one)
+        p99 = float(np.quantile(dp, 0.99))
+        m = meta("gloo", "sample_full", 0)
+        say(f"phase 8: single driver on a data 1 x sample 2 mesh (2 gloo ranks, {len(offsets) // 2} "
+            f"z-sorted samples each): wall {m['seconds']:.3f} s; vs one process normalized {err[0]:.3e}, "
+            f"abs {err[1]:.3e}; flips outside margin {hard}, |dp| p99 {p99:.3e} max "
+            f"{dp.max():.3e}; launches per rank {[meta('gloo', 'sample_full', r)['launches'] for r in range(2)]} "
+            f"({smi})")
+        if not err[0] < NORMALIZED_BOUND or hard or not p99 < DECISION_P99:
+            fail("phase 8: the sample-axis run fails the kernel bound or the decision gate")
+
+        # ---- training: the device optimizer on the card, and two ranks
+        results = {}
+        for optimizer in ("host", "device"):
+            syncs = lbfgs_device.host_syncs
+            sync()
+            t0 = time.perf_counter()
+            _, res = learn_gp_model(training, training_params, optimizer=optimizer)
+            sync()
+            results[optimizer] = (res, time.perf_counter() - t0, lbfgs_device.host_syncs - syncs)
+        (h, h_s, _), (d, d_s, d_syncs) = results["host"], results["device"]
+        train = [meta("gloo", "train", r) for r in range(2)]
+        rel2 = abs(train[0]["f"] / h.f - 1)
+        say(f"phase 8: training on the release's {training.num_quasars} spectra, budget "
+            f"{training_params.optimization.max_iterations} iterations / "
+            f"{training_params.optimization.max_fun_evals} evaluations, float64 on the card: host "
+            f"L-BFGS NLL {h.f:.6f} ({h.message}, {h.iterations} it, {h.fun_evals} evals, {h_s:.2f} s, "
+            f"one gradient to the host per evaluation); device L-BFGS NLL {d.f:.6f} ({d.message}, "
+            f"{d.iterations} it, {d.fun_evals} evals, {d_s:.2f} s, {d_syncs} scalar reads = "
+            f"{d_syncs / d.fun_evals:.2f} per evaluation); 2 gloo ranks, host L-BFGS: NLL "
+            f"{train[0]['f']:.6f} ({train[0]['message']}, {train[0]['iterations']} it, "
+            f"{train[0]['seconds']:.2f} s), {rel2:.2e} from one rank ({smi})")
+        if not rel2 < 1e-6 or train[0]["f"] != train[1]["f"]:
+            fail("phase 8: two-rank training misses the one-rank NLL")
+        if not np.isfinite(d.f):
+            fail("phase 8: the device L-BFGS did not reach a finite NLL")
+    say(f"phase 8 ok: 2 gloo ranks {wall['gloo']:.1f} s, 1 NCCL rank {wall['nccl']:.1f} s "
+        "(process start and CUDA set-up included)")
+    return {"wall": wall, "device_lbfgs_syncs_per_eval": d_syncs / d.fun_evals}
 
 
 def kernel_inputs(w, params, offsets, nhis, n, device, dtype, num_lines=3):
@@ -1232,7 +1603,14 @@ def main() -> None:
     )
     rl, rb = release["launches"], release["batches"]
 
-    # ---- phase 8: results
+    # ---- phase 8: the drivers across ranks
+    ranks_phase(
+        smi, w,
+        (model, samples.offset_samples, samples.nhi_samples, spectra2, prior_z, prior_num, params),
+        release,
+    )
+
+    # ---- phase 9: results
     say(json.dumps({"kernels": [
         {
             "name": "evidence_single_f32",

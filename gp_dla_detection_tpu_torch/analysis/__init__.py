@@ -1,9 +1,9 @@
-"""Science analysis layer: CDDF, dN/dX, Omega_DLA, plots.
+"""Science analysis layer: CDDF, dN/dX, Omega_DLA, plots, tables.
 
 Counterpart of ``gp_dla_detection_tpu/analysis``: ``cddf``,
-``cosmology``, ``pb`` and ``plots`` are the port's own copies of the JAX
-package's modules, and ``lean_catalogue`` holds the statistics from
-device-reduced lean inputs (``LeanDLACatalogue``).
+``cosmology``, ``pb``, ``plots`` and ``tables`` are the port's own
+copies of the JAX package's modules, and ``lean_catalogue`` holds the
+statistics from device-reduced lean inputs (``LeanDLACatalogue``).
 """
 
 from .cddf import DLACatalogue, compute_all_snrs, compute_pixel_noise

@@ -7,8 +7,11 @@ matrices (the port's ``ops/low_rank_mvn.{pair_products,
 woodbury_log_p}``), differentiated with ``torch.autograd`` on one flat
 parameter vector laid out as the JAX package's ``ravel_pytree`` lays out
 its parameter dict, and minimized by the host L-BFGS (``ops/lbfgs.py``,
-a copy of the JAX package's).  The data preparation and the PCA
-initialization are the JAX package's numpy, copied.
+a copy of the JAX package's) or the on-device one
+(``ops/lbfgs_device.py``).  On a mesh each data rank holds its rows of
+the training matrices and the value and gradient are summed over the
+ranks.  The data preparation and the PCA initialization are the JAX
+package's numpy, copied.
 
 As in the JAX package, the Kim et al. (2007) Gaussian priors on tau_0
 and beta enter the objective value as well as the gradient (the
@@ -26,8 +29,10 @@ import torch
 from ..params import LYA_WAVELENGTH, Parameters
 
 from ..ops.lbfgs import LBFGSResult, minimize_lbfgs
+from ..ops.lbfgs_device import minimize_lbfgs_device
 from ..ops.low_rank_mvn import pair_products, woodbury_log_p
 from ..ops.pca import pairwise_pca
+from ..parallel.mesh import DATA_AXIS, all_reduce_sum, rank_device
 from ..runtime import default_device
 from .qso_model import GPModel
 
@@ -227,6 +232,7 @@ def learn_gp_model(
     dtype: torch.dtype = torch.float64,
     prior_in_value: bool = True,
     callback=None,
+    mesh=None,
     checkpoint_path=None,
     optimizer: str = "host",
     device=None,
@@ -234,52 +240,83 @@ def learn_gp_model(
     """Fit the GP null model by L-BFGS (learn_qso_model.m:100-123).
 
     The training matrices and every objective evaluation live on
-    ``device`` (default: the CUDA device; raises without a card) at
-    ``dtype``; the optimizer's state is
-    float64 on the host.  ``optimizer="host"`` is the strong-Wolfe
-    two-loop L-BFGS of ``ops/lbfgs.py``; the JAX package's on-device
-    optimizer (``"device"``) is not ported.  ``checkpoint_path``: the
-    optimizer state, saved periodically and resumed when present.
+    ``device`` (default: the mesh's card for this rank, else the CUDA
+    device; raises without a card) at ``dtype``.
+
+    ``optimizer``: ``"host"``, the strong-Wolfe two-loop L-BFGS of
+    ``ops/lbfgs.py`` (its state float64 on the host, the gradient
+    brought to the host per evaluation), or ``"device"``, the
+    backtracking-Armijo L-BFGS of ``ops/lbfgs_device.py`` (its state at
+    ``dtype`` on the device, scalars read per evaluation).
+
+    ``mesh`` (``parallel.mesh.Mesh``): each data rank holds its rows of
+    the four training matrices, padded to a multiple of the data axis
+    with fully masked rows (which contribute exactly zero); value and
+    gradient are summed over the data axis, so every rank runs the same
+    optimizer to the same model.  The Kim et al. priors enter once (on
+    data rank 0).  Only the coordinator writes ``checkpoint_path``;
+    every rank resumes from it.
     """
     if params is None:
         params = Parameters()
-    if optimizer == "device":
-        raise NotImplementedError(
-            "optimizer='device' (the JAX package's on-device L-BFGS, "
-            "ops/lbfgs_device.py) is not ported yet (ROADMAP A.11); use "
-            "optimizer='host'"
-        )
-    if optimizer != "host":
+    if optimizer not in ("host", "device"):
         raise ValueError(f"unknown optimizer {optimizer!r} (host|device)")
-    device = default_device(device)
+    device = default_device(rank_device(device, mesh))
 
     np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
     init = initialize_model_params(data, params)
     layout = flat_layout(init)
+    arrays = (data.centered_flux, data.lya_1pzs, data.noise_variance, data.mask)
+    prior = prior_in_value
+    if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+        n_data = mesh.shape[DATA_AXIS]
+        pad = (-len(arrays[0])) % n_data
+        # masked-pixel fill values: a padded row contributes exactly zero
+        arrays = tuple(
+            np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+            for a, fill in zip(arrays, (0.0, 1.0, 0.0, False))
+        )
+        per = len(arrays[0]) // n_data
+        arrays = tuple(a[mesh.data_index * per : (mesh.data_index + 1) * per] for a in arrays)
+        prior = prior_in_value and mesh.data_index == 0
     put = lambda a: torch.as_tensor(np.asarray(a), device=device)
     args = (
-        put(data.centered_flux).to(dtype),
-        put(data.lya_1pzs).to(dtype),
-        put(data.noise_variance).to(dtype),
-        put(data.mask),
+        put(arrays[0]).to(dtype),
+        put(arrays[1]).to(dtype),
+        put(arrays[2]).to(dtype),
+        put(arrays[3]),
     )
 
-    def value_and_grad(x):
-        flat = put(x).to(dtype).requires_grad_(True)
-        f = objective(unravel(flat, layout), *args, prior_in_value=prior_in_value)
+    def value_and_grad(flat, *data_args):
+        flat = flat.detach().requires_grad_(True)
+        f = objective(unravel(flat, layout), *data_args, prior_in_value=prior)
         (g,) = torch.autograd.grad(f, flat)
-        return float(f.detach()), g.detach().cpu().numpy().astype(np.float64)
+        return all_reduce_sum(f.detach(), mesh), all_reduce_sum(g, mesh)
 
     opt = params.optimization
-    result = minimize_lbfgs(
-        value_and_grad,
-        # the starting point at the run dtype, as the JAX package casts it
-        ravel(init).astype(np_dtype).astype(np.float64),
+    budget = dict(
         max_iterations=opt.max_iterations,
         max_fun_evals=opt.max_fun_evals,
         callback=callback,
         checkpoint_path=checkpoint_path,
+        write_checkpoints=mesh is None or mesh.is_coordinator,
     )
+    if optimizer == "device":
+        result = minimize_lbfgs_device(
+            value_and_grad, put(ravel(init)).to(dtype), *args, **budget
+        )
+    else:
+
+        def host_value_and_grad(x):
+            f, g = value_and_grad(put(x).to(dtype), *args)
+            return float(f), g.cpu().numpy().astype(np.float64)
+
+        result = minimize_lbfgs(
+            host_value_and_grad,
+            # the starting point at the run dtype, as the JAX package casts it
+            ravel(init).astype(np_dtype).astype(np.float64),
+            **budget,
+        )
 
     # the fitted values at the run dtype, as the JAX package reads them
     fitted = unravel(np.asarray(result.x, np.float64).astype(np_dtype), layout)

@@ -20,16 +20,14 @@ configuration of the CUDA evidence kernel, float32 on CUDA tensors).
 from __future__ import annotations
 
 import dataclasses
-import json
 import math
-import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .params import LYA_WAVELENGTH, LYMAN_LIMIT, Parameters, kms_to_z
-from .utils.atomic_io import atomic_savez, atomic_write_json
+from .utils.atomic_io import atomic_savez
 
 from .cddf_inputs import CDDFInputs
 from .inference import (
@@ -595,8 +593,10 @@ def process_spectra_multi(
     backend: str | None = None,
     checkpoint_dir=None,
     progress: bool = False,
+    mesh=None,
 ) -> MultiDLAResults:
-    """Model selection over {no DLA, 1 DLA, 2 DLAs} on one device.
+    """Model selection over {no DLA, 1 DLA, 2 DLAs} on one device, or
+    with its pair stage split over ``mesh`` (``parallel.mesh.Mesh``).
 
     Runs (or reuses, as ``single``) the single-DLA stage, draws the base
     absorbers on the host (:func:`make_base_sample_inds`), evaluates the
@@ -611,8 +611,28 @@ def process_spectra_multi(
     with a manifest and a numerics fingerprint; a rerun resumes the
     completed batches and ignores (with a warning) checkpoints of
     another run.
+
+    ``mesh``: default ``make_mesh()``.  Each data rank evaluates its rows
+    of a super-batch of ``batch_size`` x the data axis; on a sample axis
+    each rank takes a contiguous block of the z-sorted pair columns, the
+    base columns travelling with them.  The rows are gathered so that
+    every rank holds the whole result; the coordinator checkpoints.
+    Without ``single``, the single stage runs on one device.
     """
-    device, dtype, backend = resolve_run(device, dtype, backend)
+    from .parallel.mesh import DATA_AXIS, SAMPLE_AXIS, fetch_global, make_mesh, rank_device
+    from .parallel.sharded_inference import (
+        BatchLog,
+        checkpoint_batch,
+        in_sample_order,
+        rank_rows,
+        resumable_batches,
+        run_fingerprint,
+        sample_blocks,
+    )
+
+    if mesh is None:
+        mesh = make_mesh()
+    device, dtype, backend = resolve_run(rank_device(device, mesh), dtype, backend)
     if params is None:
         params = Parameters()
     if dtype not in _NUMPY_DTYPES:
@@ -647,17 +667,21 @@ def process_spectra_multi(
     min_sep_z = kms_to_z(min_separation_kms)
 
     window = None
-    order = unsort = None
+    order = None
     if backend == "cuda":
         # z-sort the fresh axis; the base columns travel with their pairs
         order = np.argsort(offsets, kind="stable")
-        unsort = np.argsort(order, kind="stable")
         window = compute_sample_window(
             offsets, evidence.SAMPLE_TILE,
             spectra.wavelengths.shape[1] + 2 * params.instrument.width,
             num_lines=params.num_lines,
             pixel_spacing=params.instrument.pixel_spacing,
         )
+    # the pair columns this rank evaluates (original sample indices): a
+    # z-sorted block on a sample axis, else all of them in the layout
+    split = sample_blocks(offsets, mesh)
+    block, columns = split if split is not None else (order, order)
+    cols = np.arange(S) if block is None else block
 
     on_device = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)
     model_args = (
@@ -668,60 +692,41 @@ def process_spectra_multi(
         model.log_c_0,
         model.log_tau_0,
         model.log_beta,
-        on_device(offsets if order is None else offsets[order]),
-        on_device(nhis if order is None else nhis[order]),
+        on_device(offsets[cols]),
+        on_device(nhis[cols]),
     )
-
-    def base_slice(arr, start, stop):
-        # per-batch gather: offsets[base] whole would be (N, S) per array
-        vals = arr[base[start:stop]]
-        return vals if order is None else vals[:, order]
 
     # pair lls stored at the run dtype: (N, S) dominates host memory
     out2 = np.empty((n, S), np_dtype)
 
+    super_batch = batch_size * mesh.shape[DATA_AXIS]
+    rows = rank_rows(mesh, batch_size)
     ckpt_dir = Path(checkpoint_dir) if checkpoint_dir else None
-    manifest_path = ckpt_dir / "manifest.json" if ckpt_dir else None
-    from .parallel.sharded_inference import run_fingerprint
-
     fingerprint = run_fingerprint(
         dtype, backend, params, model, offsets, nhis,
         extra=([min_sep_z, float(sample_chunk)], base, spectra.z_qso),
     )
-    done: set = set()
-    if manifest_path and manifest_path.exists():
-        manifest = json.loads(manifest_path.read_text())
-        if (
-            manifest.get("num_spectra") == n
-            and manifest.get("batch_size") == batch_size
-            and manifest.get("num_samples") == S
-            and manifest.get("base_seed") == base_seed
-            and manifest.get("fingerprint") == fingerprint
-        ):
-            done = set(manifest["completed_batches"])
-        else:
-            warnings.warn(
-                f"ignoring incompatible two-DLA checkpoints in {ckpt_dir} "
-                "(run shape or numerics config changed)",
-                stacklevel=2,
-            )
-    if ckpt_dir:
-        ckpt_dir.mkdir(parents=True, exist_ok=True)
+    expect = {
+        "num_spectra": n, "batch_size": super_batch, "num_samples": S,
+        "base_seed": base_seed, "fingerprint": fingerprint,
+    }
+    done = resumable_batches(mesh, ckpt_dir, expect, "two-DLA")
 
-    for bi, start in enumerate(range(0, n, batch_size)):
-        stop = min(start + batch_size, n)
-        ckpt_file = ckpt_dir / f"batch_{bi:06d}.npz" if ckpt_dir else None
-        if bi in done and ckpt_file and ckpt_file.exists():
-            with np.load(ckpt_file) as f:
+    log = BatchLog(mesh, n, progress)
+    for bi, start in enumerate(range(0, n, super_batch)):
+        stop = min(start + super_batch, n)
+        if bi in done:
+            with np.load(ckpt_dir / f"batch_{bi:06d}.npz") as f:
                 out2[start:stop] = f["sample_log_likelihoods_dla2"]
+            log.done(bi, stop - start)
             continue
-        batch = spectra.slice(slice(start, stop)).pad_to(batch_size)
-        pad_rows = batch_size - (stop - start)
-        ob = base_slice(offsets, start, stop)
-        nb = base_slice(nhis, start, stop)
-        if pad_rows:
-            ob = np.concatenate([ob, np.repeat(ob[-1:], pad_rows, axis=0)])
-            nb = np.concatenate([nb, np.repeat(nb[-1:], pad_rows, axis=0)])
+        log.start()
+        batch = spectra.slice(slice(start, stop)).pad_to(super_batch).slice(rows)
+        # per-batch gather: offsets[base] whole would be (N, S) per array
+        bidx = base[start:stop]
+        bidx = np.concatenate([bidx, np.repeat(bidx[-1:], super_batch - len(bidx), axis=0)])
+        bidx = bidx[rows][:, cols]
+        log.mark("slice")
         lls = batch_dla2_log_likelihoods(
             on_device(batch.wavelengths),
             on_device(batch.flux),
@@ -729,35 +734,23 @@ def process_spectra_multi(
             torch.as_tensor(np.asarray(batch.mask, bool), device=device),
             on_device(batch.z_qso),
             *model_args,
-            on_device(ob),
-            on_device(nb),
+            on_device(offsets[bidx]),
+            on_device(nhis[bidx]),
             params=params,
             min_sep_z=min_sep_z,
             backend=backend,
             sample_window=window,
             sample_chunk=sample_chunk,
         )
-        rows = lls.cpu().numpy()[: stop - start]
-        out2[start:stop] = rows if unsort is None else rows[:, unsort]
-        if ckpt_file:
-            atomic_savez(
-                ckpt_file, compress=False,
-                sample_log_likelihoods_dla2=out2[start:stop],
-            )
-            done.add(bi)
-            atomic_write_json(
-                manifest_path,
-                {
-                    "num_spectra": n,
-                    "batch_size": batch_size,
-                    "num_samples": S,
-                    "base_seed": base_seed,
-                    "fingerprint": fingerprint,
-                    "completed_batches": sorted(done),
-                },
-            )
-        if progress:
-            print(f"two-DLA stage: {stop}/{n} spectra", flush=True)
+        lls = fetch_global(lls, mesh, SAMPLE_AXIS, dim=1) if split is not None else fetch_global(lls)
+        log.mark("evaluate")
+        rows_out = fetch_global(in_sample_order(lls, columns), mesh, DATA_AXIS)[: stop - start]
+        log.mark("gather")
+        out2[start:stop] = rows_out
+        checkpoint_batch(
+            mesh, ckpt_dir, bi, done, expect, {"sample_log_likelihoods_dla2": rows_out}
+        )
+        log.done(bi, stop - start)
 
     return finalize_multi(
         single, out2, base, spectra.z_qso, prior_z_qsos, prior_num_dlas,

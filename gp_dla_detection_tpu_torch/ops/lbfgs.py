@@ -1,7 +1,8 @@
 """L-BFGS with strong-Wolfe line search (minFunc replacement).
 
 A copy of ``gp_dla_detection_tpu/ops/lbfgs.py`` (numpy only; the JAX
-package's ``ops`` cannot be imported without jax).  The reference trains
+package's ``ops`` cannot be imported without jax), with one addition:
+``write_checkpoints``.  The reference trains
 its GP with Mark Schmidt's minFunc MATLAB toolbox
 (learn_qso_model.m:100-101); this is a host-side two-loop-recursion
 L-BFGS driving a value_and_grad callable that runs on the device.
@@ -125,6 +126,7 @@ def minimize_lbfgs(
     callback=None,
     checkpoint_path=None,
     checkpoint_every: int = 50,
+    write_checkpoints: bool = True,
 ) -> LBFGSResult:
     """Minimize f(x) with L-BFGS.
 
@@ -136,6 +138,8 @@ def minimize_lbfgs(
     iterations and restored automatically when the file exists — the
     reference has no intra-training checkpointing at all (a crash loses
     the whole minFunc run, learn_qso_model.m:100).
+    ``write_checkpoints=False`` resumes from ``checkpoint_path`` without
+    writing it (the non-coordinator ranks of a data-parallel run).
     """
 
     def fg(x):
@@ -172,7 +176,7 @@ def minimize_lbfgs(
                     s_hist.pop(0), y_hist.pop(0), rho_hist.pop(0)
 
     def save_checkpoint(it):
-        if checkpoint_path is None:
+        if checkpoint_path is None or not write_checkpoints:
             return
         payload = {
             "x": x,

@@ -1,11 +1,24 @@
-"""Drivers over many batches on one device: the single-DLA driver, the
-{0,1,2}-DLA drivers (the fused lean chain with its device reductions),
-checkpoint fingerprints.
+"""Parallel execution: the (data, sample) mesh over torch.distributed
+ranks, the drivers over many batches with checkpoints (the single-DLA
+driver, the {0,1,2}-DLA drivers with the fused lean chain and its device
+reductions), checkpoint fingerprints.
 
-Counterpart of ``gp_dla_detection_tpu/parallel/``: the mesh,
-``shard_map`` and data parallelism across cards are not ported yet.
+Counterpart of ``gp_dla_detection_tpu/parallel/``; the XLA-only
+``shard_map_compat`` and ``NamedSharding`` helpers (``data_sharding``,
+``sample_sharding``, ``replicated``, ``shard_batch``) are not ported: a
+rank is one process with one card.
 """
 
+from .mesh import (
+    DATA_AXIS,
+    SAMPLE_AXIS,
+    Mesh,
+    fetch_global,
+    initialize_distributed,
+    is_coordinator,
+    make_mesh,
+    shutdown,
+)
 from .sharded_inference import ShardedRunConfig, process_spectra_sharded, run_fingerprint
 from .sharded_multi import (
     FUSED_LEAN_BASE_REPLICATES,
@@ -15,11 +28,19 @@ from .sharded_multi import (
 from .streaming import pack_lean
 
 __all__ = [
-    "FUSED_LEAN_BASE_REPLICATES",
+    "process_spectra_multi_sharded",
+    "DATA_AXIS",
+    "SAMPLE_AXIS",
+    "make_mesh",
+    "initialize_distributed",
     "ShardedRunConfig",
+    "process_spectra_sharded",
+    "FUSED_LEAN_BASE_REPLICATES",
+    "Mesh",
+    "fetch_global",
+    "is_coordinator",
     "pack_lean",
     "process_spectra_multi_lean",
-    "process_spectra_multi_sharded",
-    "process_spectra_sharded",
     "run_fingerprint",
+    "shutdown",
 ]

@@ -1,8 +1,10 @@
-"""The fused lean two-stage {0,1,2}-DLA chain on one device.
+"""The fused lean two-stage {0,1,2}-DLA chain and the classic flow, on a
+mesh.
 
-Counterpart of ``gp_dla_detection_tpu/parallel/sharded_multi.py``'s
-``_process_multi_lean_fused``, the production catalog run.  Per batch of
-spectra, on the device:
+Counterpart of ``gp_dla_detection_tpu/parallel/sharded_multi.py``.
+``process_spectra_multi_lean`` is its ``_process_multi_lean_fused``, the
+production catalog run.  Per super-batch (``batch_size`` rows per data
+rank), each data rank runs on its device, on its rows:
 
 1. the single-DLA sample evidences (``inference.batch_log_likelihoods``,
    columns in original sample order);
@@ -18,18 +20,25 @@ spectra, on the device:
 7. optionally the CDDF inputs (``cddf_inputs.make_cddf_reducer``).
 
 Only eight per-spectrum vectors (and the CDDF reductions) reach the
-host, which translates the pair indices back to original sample
-numbering, forms the posteriors and keeps one checkpoint stream.  The
-(N, S) matrices never exist on the host, so the results carry None for
-them.
+host; they are gathered along the data axis, so that every rank holds
+the whole catalogue, which translates the pair indices back to original
+sample numbering and forms the posteriors; the coordinator keeps one
+checkpoint stream.  The (N, S) matrices never exist on the host, so the
+results carry None for them.  The base columns depend on ``base_seed``,
+R and S alone, never on the rank: the mesh changes no draw.  A sample
+axis is refused (the R-layout is bound to the kernel's 256-column tile;
+the JAX package's XLA path shards the whole chain along samples, which
+is not ported).
 
 :func:`process_spectra_multi_sharded` is the driver the pipeline calls:
 the lean chain, or the classic two-pass flow with the single stage's
 checkpoints under ``<checkpoint_dir>/single`` and the pair stage's under
-``<checkpoint_dir>/pair``.
+``<checkpoint_dir>/pair`` (``multi_dla.process_spectra_multi`` on the
+mesh: rows over the data axis, z-sorted blocks of the pair columns over
+the sample axis).
 
-Not ported: the mesh and ``shard_map`` (ROADMAP A.10), the degradation
-ladders and the threaded upload overlap.
+Not ported: ``shard_map``, the degradation ladders and the threaded
+upload overlap.
 """
 
 from __future__ import annotations
@@ -42,7 +51,6 @@ import numpy as np
 import torch
 
 from ..params import Parameters, kms_to_z
-from ..utils.atomic_io import atomic_savez, atomic_write_json
 
 from ..cddf_inputs import N_CHANNELS, CDDFInputs, CDDFReductionSpec, make_cddf_reducer
 from ..inference import (
@@ -69,10 +77,14 @@ from ..multi_dla import (
     replicate_draw_pattern,
 )
 from ..ops import evidence
+from .mesh import DATA_AXIS, SAMPLE_AXIS, Mesh, fetch_global, make_mesh, rank_device
 from .sharded_inference import (
+    BatchLog,
     ShardedRunConfig,
+    checkpoint_batch,
     process_spectra_sharded,
-    read_manifest,
+    rank_rows,
+    resumable_batches,
     run_fingerprint,
 )
 from .streaming import pack_lean
@@ -147,9 +159,10 @@ def process_spectra_multi_lean(
     checkpoint_dir=None,
     progress: bool = False,
     store_cddf_inputs: bool = False,
+    mesh: Mesh | None = None,
 ) -> MultiDLAResults:
     """Lean (catalog-only) {0,1,2}-DLA selection: both stages per batch
-    on one device (see the module docstring).
+    on each data rank's device (see the module docstring).
 
     ``backend``: ``"torch"`` (plain path, any dtype) or ``"cuda"`` (both
     kernel configurations; float32 on a CUDA device).  ``device``,
@@ -165,12 +178,23 @@ def process_spectra_multi_lean(
     with a warning, checkpoints of another run or of the JAX package.
     ``store_cddf_inputs``: also reduce the CDDF inputs in each batch
     (checkpointed with it); the results then carry ``cddf_inputs``.
+    ``mesh``: default ``make_mesh()``; a data axis only.
     """
-    device, dtype, backend = resolve_run(device, dtype, backend)
+    if mesh is None:
+        mesh = make_mesh()
+    device, dtype, backend = resolve_run(rank_device(device, mesh), dtype, backend)
     if params is None:
         params = Parameters()
     if dtype not in _NUMPY_DTYPES:
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
+    if mesh.shape[SAMPLE_AXIS] > 1:
+        raise ValueError(
+            "the fused lean two-stage driver runs data-parallel only: its "
+            "base-draw layout is bound to the kernel's 256-column sample "
+            f"tile, so a sample axis ({mesh.shape[SAMPLE_AXIS]} ranks) is "
+            "refused under either backend; use a data-only mesh "
+            "(make_mesh() with sample_parallelism=1)"
+        )
     use_cuda = backend == "cuda"
     R = base_replicates
     if R is None:
@@ -253,7 +277,6 @@ def process_spectra_multi_lean(
         host_ex = np.empty((n, 5 * cddf_spec.top_k + 4), _NUMPY_DTYPES[dtype])
 
     ckpt_dir = Path(checkpoint_dir) / "fused" if checkpoint_dir else None
-    manifest_path = ckpt_dir / "manifest.json" if ckpt_dir else None
     # R > 1 draws on another grid: a distinct numerics configuration; a
     # CDDF run fingerprints the reduction spec (its grids determine the
     # stored hist, and other runs' checkpoints lack it)
@@ -270,33 +293,36 @@ def process_spectra_multi_lean(
             else ()
         ),
     )
+    super_batch = batch_size * mesh.shape[DATA_AXIS]
+    rows = rank_rows(mesh, batch_size)
     expect = {
-        "num_spectra": n, "batch_size": batch_size, "num_samples": S,
+        "num_spectra": n, "batch_size": super_batch, "num_samples": S,
         "fingerprint": fingerprint,
     }
-    done = read_manifest(manifest_path, expect, "fused two-stage")
-    if ckpt_dir:
-        ckpt_dir.mkdir(parents=True, exist_ok=True)
+    done = resumable_batches(mesh, ckpt_dir, expect, "fused two-stage")
 
     def batch_vec(a, start, stop):
-        """Rows start:stop of a per-spectrum host vector on the device,
-        padded like the batch (the last row repeated)."""
+        """This rank's rows of a per-spectrum host vector on the device,
+        padded like the super-batch (the last row repeated)."""
         v = np.asarray(a[start:stop])
-        return on_device(np.concatenate([v, np.repeat(v[-1:], batch_size - len(v))]))
+        return on_device(np.concatenate([v, np.repeat(v[-1:], super_batch - len(v))])[rows])
 
     host_vecs = {k: np.empty(n) for k in VEC_KEYS}
-    for bi, start in enumerate(range(0, n, batch_size)):
-        stop = min(start + batch_size, n)
-        ckpt_file = ckpt_dir / f"batch_{bi:06d}.npz" if ckpt_dir else None
-        if bi in done and ckpt_file and ckpt_file.exists():
-            with np.load(ckpt_file) as f:
+    log = BatchLog(mesh, n, progress)
+    for bi, start in enumerate(range(0, n, super_batch)):
+        stop = min(start + super_batch, n)
+        if bi in done:
+            with np.load(ckpt_dir / f"batch_{bi:06d}.npz") as f:
                 for k in VEC_KEYS:
                     host_vecs[k][start:stop] = f[k]
                 if store_cddf_inputs:
                     host_hist[start:stop] = f["cddf_hist"]
                     host_ex[start:stop] = f["cddf_ex"]
+            log.done(bi, stop - start)
             continue
-        batch = spectra.slice(slice(start, stop)).pad_to(batch_size)
+        log.start()
+        batch = spectra.slice(slice(start, stop)).pad_to(super_batch).slice(rows)
+        log.mark("slice")
         spec = (
             on_device(batch.wavelengths),
             on_device(batch.flux),
@@ -329,16 +355,18 @@ def process_spectra_multi_lean(
                 )),
                 lls2, ev2, base_cols,
             )
-            cddf = {"cddf_hist": hist.cpu().numpy()[: stop - start],
-                    "cddf_ex": ex.cpu().numpy()[: stop - start]}
+            cddf = {"cddf_hist": hist, "cddf_ex": ex}
         small = (
             out1["log_likelihood_no_dla"], out1["min_z_dla"], out1["max_z_dla"],
             ev1, map1, ev2, map2, map_base,
         )
         # one device-to-host copy; indices are exact in float64
-        vecs = list(torch.stack([v.to(torch.float64) for v in small]).cpu().numpy())
+        vecs = fetch_global(torch.stack([v.to(torch.float64) for v in small]))
+        log.mark("evaluate")
         keep = stop - start
-        vecs = [v[:keep] for v in vecs]
+        vecs = list(fetch_global(vecs, mesh, DATA_AXIS, dim=1)[:, :keep])
+        cddf = {k: fetch_global(v, mesh, DATA_AXIS)[:keep] for k, v in cddf.items()}
+        log.mark("gather")
         # -1 = no finite sample: the catalog's fallback is index 0; the
         # pair MAPs keep -1 as the no-valid-pair flag
         vecs[4] = np.maximum(vecs[4], 0.0)
@@ -359,15 +387,11 @@ def process_spectra_multi_lean(
         if cddf:
             host_hist[start:stop] = cddf["cddf_hist"]
             host_ex[start:stop] = cddf["cddf_ex"]
-        if ckpt_file:
-            atomic_savez(ckpt_file, compress=False, **dict(zip(VEC_KEYS, vecs)), **cddf)
-            done.add(bi)
-            atomic_write_json(
-                manifest_path,
-                {**expect, "base_seed": base_seed, "completed_batches": sorted(done)},
-            )
-        if progress:
-            print(f"fused two-stage: {stop}/{n} spectra", flush=True)
+        checkpoint_batch(
+            mesh, ckpt_dir, bi, done, {**expect, "base_seed": base_seed},
+            {**dict(zip(VEC_KEYS, vecs)), **cddf},
+        )
+        log.done(bi, stop - start)
 
     post = posteriors_from_evidence(
         log_p_no_dla, log_p_dla,
@@ -411,14 +435,15 @@ def process_spectra_multi_sharded(
     prior_z_qsos,
     prior_num_dlas,
     params: Parameters | None = None,
+    mesh: Mesh | None = None,
     config: ShardedRunConfig | None = None,
     progress: bool = False,
     min_separation_kms: float = 3000.0,
     base_seed: int = 0,
     single: InferenceResults | None = None,
 ) -> MultiDLAResults:
-    """{0,1,2}-DLA model selection on one device, the counterpart of the
-    JAX driver of the same name.
+    """{0,1,2}-DLA model selection on ``mesh`` (default ``make_mesh()``),
+    the counterpart of the JAX driver of the same name.
 
     ``config.store_sample_likelihoods=False``: the fused lean chain
     (:func:`process_spectra_multi_lean`), with ``store_cddf_inputs``.
@@ -426,13 +451,17 @@ def process_spectra_multi_sharded(
     (``process_spectra_sharded``, checkpointed under
     ``<checkpoint_dir>/single``) or ``single`` reused, then
     ``multi_dla.process_spectra_multi`` with its pair checkpoints under
-    ``<checkpoint_dir>/pair``.
+    ``<checkpoint_dir>/pair``, its pair stage split over the mesh.
     """
     if params is None:
         params = Parameters()
     if config is None:
         config = ShardedRunConfig()
-    device, dtype, backend = resolve_run(config.device, config.torch_dtype(), config.backend)
+    if mesh is None:
+        mesh = make_mesh()
+    device, dtype, backend = resolve_run(
+        rank_device(config.device, mesh), config.torch_dtype(), config.backend
+    )
     ckpt_root = Path(config.checkpoint_dir) if config.checkpoint_dir else None
 
     if not config.store_sample_likelihoods:
@@ -451,7 +480,7 @@ def process_spectra_multi_sharded(
             backend=backend, base_replicates=config.base_replicates,
             base_seed=base_seed, min_separation_kms=min_separation_kms,
             checkpoint_dir=ckpt_root, progress=progress,
-            store_cddf_inputs=config.store_cddf_inputs,
+            store_cddf_inputs=config.store_cddf_inputs, mesh=mesh,
         )
     if config.base_replicates not in (None, 1):
         raise ValueError(
@@ -478,7 +507,7 @@ def process_spectra_multi_sharded(
     if single is None:
         single = process_spectra_sharded(
             model, offset_samples, nhi_samples, spectra,
-            prior_z_qsos, np.asarray(prior_num_dlas) >= 1, params=params,
+            prior_z_qsos, np.asarray(prior_num_dlas) >= 1, params=params, mesh=mesh,
             config=dataclasses.replace(
                 config, checkpoint_dir=str(ckpt_root / "single") if ckpt_root else None
             ),
@@ -491,4 +520,5 @@ def process_spectra_multi_sharded(
         min_separation_kms=min_separation_kms, base_seed=base_seed, single=single,
         backend=backend,
         checkpoint_dir=ckpt_root / "pair" if ckpt_root else None, progress=progress,
+        mesh=mesh,
     )

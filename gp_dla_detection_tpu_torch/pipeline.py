@@ -1,6 +1,6 @@
 """Stage orchestration: the end-to-end pipeline with stage-level resume.
 
-Counterpart of ``gp_dla_detection_tpu/pipeline.py``, on one device.  Each
+Counterpart of ``gp_dla_detection_tpu/pipeline.py``.  Each
 stage checks for its artifact and is skipped when it is complete
 (catalog -> preloaded -> model + samples -> processed -> multi -> ascii
 -> analysis), with per-batch checkpoints inside the process and multi
@@ -19,11 +19,28 @@ a card):
 
 ``--device cpu --dtype float64`` runs the plain path on the CPU (parity
 with the JAX package).
+
+Across cards, one process per card (``WORLD_SIZE`` > 1: the CLI joins
+the process group and builds the data mesh; each rank takes
+``cuda:LOCAL_RANK``):
+
+    torchrun --nproc-per-node 4 -m gp_dla_detection_tpu_torch.pipeline \
+        --workdir runs/dr12q --lean --multi-dla --cddf-inputs
+
+Training, inference and the multi stage run data parallel on the mesh;
+every rank ends each stage with the same result.  Only the coordinator
+(rank 0) writes artifacts and checkpoints; for the host-only stages
+(catalog, preload, samples, SNRs, ASCII, analysis) the other ranks wait
+at a barrier and read what it wrote.  Which stages and batches resume is
+the coordinator's decision, broadcast, so that every rank issues the
+same collectives.  Without torchrun the CLI runs in one process as on
+one device.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import warnings
 from dataclasses import dataclass
@@ -42,6 +59,14 @@ from .inference import BACKENDS, InferenceResults, correct_prior_dla_flags
 from .models.qso_model import GPModel
 from .models.training import learn_gp_model, prepare_training_data
 from .multi_dla import MultiDLAResults, prior_dla_multiplicity
+from .parallel.mesh import (
+    Mesh,
+    barrier,
+    broadcast_object,
+    initialize_distributed,
+    make_mesh,
+    shutdown,
+)
 from .parallel.sharded_inference import ShardedRunConfig, process_spectra_sharded
 from .parallel.sharded_multi import process_spectra_multi_sharded
 from .runtime import resolve_backend
@@ -118,16 +143,23 @@ class PipelineConfig:
 
 
 class Pipeline:
-    """End-to-end driver.  All artifacts live under config.workdir."""
+    """End-to-end driver.  All artifacts live under config.workdir.
+
+    ``mesh`` (``parallel.mesh.Mesh``): training, inference and the multi
+    stage run data parallel on it, and only its coordinator writes
+    artifacts (see the module docstring).  None: one process, as on one
+    device."""
 
     def __init__(
         self,
         params: Parameters | None = None,
         config: PipelineConfig | None = None,
         file_loader=None,
+        mesh: Mesh | None = None,
     ):
         self.params = params or Parameters()
         self.config = config or PipelineConfig()
+        self.mesh = mesh
         self.device = torch.device(self.config.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -138,6 +170,39 @@ class Pipeline:
         self.file_loader = file_loader
         self.workdir = Path(self.config.workdir)
         self.workdir.mkdir(parents=True, exist_ok=True)
+
+    # --- ranks: one writer, shared decisions
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes the artifacts (the coordinator)."""
+        return self.mesh is None or self.mesh.is_coordinator
+
+    def agree(self, value):
+        """The coordinator's ``value`` on every rank: a decision that sends
+        the ranks down one path (resume a stage or compute it)."""
+        return broadcast_object(value, self.mesh)
+
+    def once(self, build, load=None):
+        """``build()``, which writes a host-only stage's artifacts, on the
+        coordinator; the other ranks wait for it, then ``load()`` what it
+        wrote (``load`` None: receive its return value).  One process:
+        ``build()``."""
+        if self.mesh is None or self.mesh.world == 1:
+            return build()
+        out = build() if self.writer else None
+        if load is None:
+            return self.agree(out)
+        barrier(self.mesh)
+        return out if self.writer else load()
+
+    def written(self, write) -> None:
+        """``write()`` (a computed stage's artifacts) on the coordinator;
+        every rank holds the same result already, and waits here so that
+        no rank reads the artifact before it is complete."""
+        if self.writer:
+            write()
+        barrier(self.mesh)
 
     # --- artifact paths (processed_directory layout, set_parameters.m:82-86)
     @property
@@ -184,29 +249,42 @@ class Pipeline:
     # --- stages ---
 
     def run_catalog(self, force: bool = False) -> Catalog:
-        if self.catalog_path.exists() and not force:
+        if self.agree(self.catalog_path.exists() and not force):
             return Catalog.load(self.catalog_path)
-        catalog = build_catalog(self.params)
-        catalog.save(self.catalog_path)
-        file_list = "\n".join(catalog.file_list()) + "\n"
-        (self.workdir / "file_list").write_text(file_list)
-        # rsync (download.download_spectra_command) reads it from the
-        # release's spectra directory (download_spectra.sh:6-8)
-        spectra_dir = self.params.spectra_directory(self.config.release)
-        spectra_dir.mkdir(parents=True, exist_ok=True)
-        (spectra_dir / "file_list").write_text(file_list)
-        return catalog
+
+        def build():
+            catalog = build_catalog(self.params)
+            catalog.save(self.catalog_path)
+            file_list = "\n".join(catalog.file_list()) + "\n"
+            (self.workdir / "file_list").write_text(file_list)
+            # rsync (download.download_spectra_command) reads it from the
+            # release's spectra directory (download_spectra.sh:6-8)
+            spectra_dir = self.params.spectra_directory(self.config.release)
+            spectra_dir.mkdir(parents=True, exist_ok=True)
+            (spectra_dir / "file_list").write_text(file_list)
+            return catalog
+
+        return self.once(build, lambda: Catalog.load(self.catalog_path))
 
     def run_preload(self, catalog: Catalog, force: bool = False) -> RaggedSpectra:
-        if self.preloaded_path.exists() and not force:
+        if self.agree(self.preloaded_path.exists() and not force):
             return RaggedSpectra.load(self.preloaded_path)
-        spectra = preload_qsos(
-            catalog, self.params, file_loader=self.file_loader,
-            release=self.config.release,
-        )
-        spectra.save(self.preloaded_path)
-        catalog.save(self.catalog_path)  # filter_flags amended in place
-        return spectra
+
+        def build():
+            spectra = preload_qsos(
+                catalog, self.params, file_loader=self.file_loader,
+                release=self.config.release,
+            )
+            spectra.save(self.preloaded_path)
+            catalog.save(self.catalog_path)  # filter_flags amended in place
+            return spectra
+
+        def load():
+            # the coordinator's preload amended its catalog's filter_flags
+            catalog.filter_flags[:] = Catalog.load(self.catalog_path).filter_flags
+            return RaggedSpectra.load(self.preloaded_path)
+
+        return self.once(build, load)
 
     def run_learn(
         self,
@@ -215,18 +293,32 @@ class Pipeline:
         train_mask=None,
         force: bool = False,
     ) -> GPModel:
-        if self.model_path.exists() and not force:
+        if self.agree(self.model_path.exists() and not force):
             # the artifact's float64; the drivers cast to the run dtype
             return GPModel.load(self.model_path, device=self.device, dtype=torch.float64)
         if force:
             # a forced retrain must not silently resume the previous
             # run's L-BFGS state (iterate + curvature history)
-            (self.workdir / "training_ckpt.npz").unlink(missing_ok=True)
+            self.written(lambda: (self.workdir / "training_ckpt.npz").unlink(missing_ok=True))
+        model, _ = learn_gp_model(
+            self.training_data(catalog, spectra, train_mask),
+            self.params,
+            checkpoint_path=self.workdir / "training_ckpt.npz",
+            device=self.device,
+            mesh=self.mesh,
+        )
+        self.written(lambda: model.save(self.model_path))
+        return model
+
+    def training_data(self, catalog: Catalog, spectra: RaggedSpectra, train_mask=None):
+        """The learn stage's training matrices (learn_qso_model.m:29-70):
+        ``train_mask`` (default: DR9 without concordance DLAs) quasars with
+        a loaded spectrum."""
         if train_mask is None:
             train_mask = catalog.train_dr9_no_concordance_dlas()
         idx = np.flatnonzero(train_mask & (spectra.lengths() > 0))
         rows = [spectra.row(int(i)) for i in idx]
-        data = prepare_training_data(
+        return prepare_training_data(
             [r[0] for r in rows],
             [r[1] for r in rows],
             [r[2] for r in rows],
@@ -234,28 +326,24 @@ class Pipeline:
             catalog.z_qsos[idx],
             self.params,
         )
-        model, _ = learn_gp_model(
-            data,
-            self.params,
-            checkpoint_path=self.workdir / "training_ckpt.npz",
-            device=self.device,
-        )
-        model.save(self.model_path)
-        return model
 
     def run_samples(self, catalog: Catalog, force: bool = False) -> DLASamples:
-        if self.samples_path.exists() and not force:
+        if self.agree(self.samples_path.exists() and not force):
             return DLASamples.load(self.samples_path)
-        observed = catalog.dla_catalogs[
-            self.config.dla_catalog_name
-        ].all_log_nhis()
-        samples = generate_dla_samples(observed, self.params)
-        samples.save(self.samples_path)
-        if self.config.export_matlab:
-            from .io.matio import write_dla_samples_mat
 
-            write_dla_samples_mat(samples, self.workdir / "dla_samples.mat")
-        return samples
+        def build():
+            observed = catalog.dla_catalogs[
+                self.config.dla_catalog_name
+            ].all_log_nhis()
+            samples = generate_dla_samples(observed, self.params)
+            samples.save(self.samples_path)
+            if self.config.export_matlab:
+                from .io.matio import write_dla_samples_mat
+
+                write_dla_samples_mat(samples, self.workdir / "dla_samples.mat")
+            return samples
+
+        return self.once(build, lambda: DLASamples.load(self.samples_path))
 
     def _padded_test_spectra(self, catalog: Catalog, spectra: RaggedSpectra, test_mask):
         test_idx = np.flatnonzero(test_mask)
@@ -280,7 +368,8 @@ class Pipeline:
             test_mask = self.default_test_mask(catalog, spectra)
         if prior_mask is None:
             prior_mask = catalog.prior_dr9_concordance()
-        if self.results_path.exists() and not force:
+        cached = None
+        if self.writer and self.results_path.exists() and not force:
             # a cached result is only valid for the SAME test selection
             mask_path = self.workdir / "test_mask.npz"
             stale = False
@@ -293,23 +382,29 @@ class Pipeline:
                 # a full artifact is a strict superset of a lean request;
                 # only the lean -> full direction lacks data
                 if (
-                    cached.sample_log_likelihoods_dla is not None
-                    or not self.config.store_sample_likelihoods
+                    cached.sample_log_likelihoods_dla is None
+                    and self.config.store_sample_likelihoods
                 ):
-                    return cached
-                why = (
-                    "cached inference artifact is lean (no sample "
-                    "matrix) but this config requests the full form"
+                    cached = None
+            if cached is None:
+                if not stale:
+                    why = (
+                        "cached inference artifact is lean (no sample "
+                        "matrix) but this config requests the full form"
+                    )
+                warnings.warn(
+                    f"{why}; recomputing (stale results + batch checkpoints "
+                    "dropped)",
+                    stacklevel=2,
                 )
-            warnings.warn(
-                f"{why}; recomputing (stale results + batch checkpoints "
-                "dropped)",
-                stacklevel=2,
-            )
-            force = True
-        if force:
+                force = True
+        if self.agree(cached is not None):
+            return cached if self.writer else InferenceResults.load(self.results_path)
+        if self.agree(force):
             # stale per-batch checkpoints must not survive a forced rerun
-            shutil.rmtree(self.workdir / "inference_ckpt", ignore_errors=True)
+            self.written(
+                lambda: shutil.rmtree(self.workdir / "inference_ckpt", ignore_errors=True)
+            )
 
         dc = catalog.dla_catalogs[self.config.dla_catalog_name]
         prior_idx = np.flatnonzero(prior_mask)
@@ -326,19 +421,24 @@ class Pipeline:
             catalog.z_qsos[prior_idx],
             prior_flags,
             params=self.params,
+            mesh=self.mesh,
             config=self.run_config(str(self.workdir / "inference_ckpt")),
         )
-        results.save(self.results_path)
-        np.savez_compressed(self.workdir / "test_mask.npz", test_mask=test_mask)
-        if self.config.export_matlab:
-            from .io.matio import write_processed_mat
 
-            write_processed_mat(
-                results,
-                test_mask,
-                self.workdir
-                / f"processed_qsos_{self.config.test_set_name}.mat",
-            )
+        def write():
+            results.save(self.results_path)
+            np.savez_compressed(self.workdir / "test_mask.npz", test_mask=test_mask)
+            if self.config.export_matlab:
+                from .io.matio import write_processed_mat
+
+                write_processed_mat(
+                    results,
+                    test_mask,
+                    self.workdir
+                    / f"processed_qsos_{self.config.test_set_name}.mat",
+                )
+
+        self.written(write)
         return results
 
     def run_multi(
@@ -355,10 +455,10 @@ class Pipeline:
         """{no DLA, 1, 2}-DLA model selection: the fused lean chain
         (lean runs) or the classic pair stage reusing the single-DLA
         stage's sample matrix."""
-        if self.multi_results_path.exists() and not force:
+        if self.agree(self.multi_results_path.exists() and not force):
             return MultiDLAResults.load(self.multi_results_path)
         if force:
-            shutil.rmtree(self.workdir / "multi_ckpt", ignore_errors=True)
+            self.written(lambda: shutil.rmtree(self.workdir / "multi_ckpt", ignore_errors=True))
         if prior_mask is None:
             prior_mask = catalog.prior_dr9_concordance()
 
@@ -377,6 +477,7 @@ class Pipeline:
             catalog.z_qsos[prior_idx],
             prior_num,
             params=self.params,
+            mesh=self.mesh,
             config=self.run_config(
                 str(self.workdir / "multi_ckpt"), store_cddf_inputs=self.config.cddf_inputs
             ),
@@ -386,17 +487,21 @@ class Pipeline:
                 results if self.config.store_sample_likelihoods else None
             ),
         )
-        multi.save(self.multi_results_path)
-        if self.config.export_matlab:
-            from .io.matio import write_multi_processed_mat
 
-            write_multi_processed_mat(
-                multi,
-                test_mask,
-                self.workdir
-                / f"processed_qsos_multi_{self.config.test_set_name}.mat",
-                samples=samples,
-            )
+        def write():
+            multi.save(self.multi_results_path)
+            if self.config.export_matlab:
+                from .io.matio import write_multi_processed_mat
+
+                write_multi_processed_mat(
+                    multi,
+                    test_mask,
+                    self.workdir
+                    / f"processed_qsos_multi_{self.config.test_set_name}.mat",
+                    samples=samples,
+                )
+
+        self.written(write)
         return multi
 
     @staticmethod
@@ -415,36 +520,49 @@ class Pipeline:
 
         path = self.workdir / "snrs.npz"
         idx = np.flatnonzero(test_mask)
-        if path.exists() and not force:
+
+        def load():
             with np.load(path) as f:
                 # only valid for the same test selection
                 if "test_idx" in f and np.array_equal(f["test_idx"], idx):
                     return f["snrs"]
-        snrs = compute_all_snrs(
-            spectra, idx, results.min_z_dlas, results.max_z_dlas
-        )
-        np.savez_compressed(path, snrs=snrs, test_idx=idx)
-        if self.config.export_matlab:
-            from .io.matio import write_snrs_mat
+            return None
 
-            write_snrs_mat(snrs, self.workdir / "snrs.mat")
-        return snrs
+        cached = load() if self.writer and path.exists() and not force else None
+        if self.agree(cached is not None):
+            return cached if self.writer else load()
+
+        def build():
+            snrs = compute_all_snrs(
+                spectra, idx, results.min_z_dlas, results.max_z_dlas
+            )
+            np.savez_compressed(path, snrs=snrs, test_idx=idx)
+            if self.config.export_matlab:
+                from .io.matio import write_snrs_mat
+
+                write_snrs_mat(snrs, self.workdir / "snrs.mat")
+            return snrs
+
+        return self.once(build, load)
 
     def run_ascii(self, catalog, samples, results, test_mask, multi=None) -> dict:
-        paths = write_ascii_catalog(
-            self.workdir,
-            self.config.test_set_name,
-            catalog,
-            samples,
-            results,
-            test_mask,
-        )
-        if multi is not None:
-            paths["multi_results"] = write_ascii_multi_results(
-                self.workdir, self.config.test_set_name, catalog,
-                samples, multi, test_mask,
+        def build():
+            paths = write_ascii_catalog(
+                self.workdir,
+                self.config.test_set_name,
+                catalog,
+                samples,
+                results,
+                test_mask,
             )
-        return paths
+            if multi is not None:
+                paths["multi_results"] = write_ascii_multi_results(
+                    self.workdir, self.config.test_set_name, catalog,
+                    samples, multi, test_mask,
+                )
+            return paths
+
+        return self.once(build)
 
     def run_analysis(self, force: bool = False, plots: bool = True) -> dict:
         """The science statistics stage (calc_cddf.py's deliverable):
@@ -453,12 +571,15 @@ class Pipeline:
         with their confidence intervals as ``analysis/statistics.json``,
         plus the reference figures (analysis/plots.do_data_plots) under
         ``workdir/analysis/`` when matplotlib is installed."""
-        from .analysis.cddf import DLACatalogue
-
         out_dir = self.workdir / "analysis"
         stats_path = out_dir / "statistics.json"
-        if stats_path.exists() and not force:
+        if self.agree(stats_path.exists() and not force):
             return json.loads(stats_path.read_text())
+        return self.once(lambda: self._analysis(out_dir, stats_path, plots))
+
+    def _analysis(self, out_dir: Path, stats_path: Path, plots: bool) -> dict:
+        from .analysis.cddf import DLACatalogue
+
         out_dir.mkdir(parents=True, exist_ok=True)
         cat = DLACatalogue.from_run(
             self.workdir, self.config.test_set_name,
@@ -545,7 +666,8 @@ class Pipeline:
             summary["artifacts"]["analysis"] = str(
                 self.workdir / "analysis" / "statistics.json"
             )
-        (self.workdir / "summary.json").write_text(json.dumps(summary, indent=2))
+        if self.writer:
+            (self.workdir / "summary.json").write_text(json.dumps(summary, indent=2))
         return summary
 
 
@@ -609,13 +731,30 @@ def main(argv=None) -> None:
     )
     args = p.parse_args(argv)
 
+    # under torchrun: one rank per card, a data mesh over all of them
+    mesh = None
+    device = args.device
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        initialize_distributed(None, int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]))
+        mesh = make_mesh()
+        if device == "cuda" and mesh.device is not None:
+            device = str(mesh.device)
+    try:
+        run_stages(args, device, mesh)
+    finally:
+        if mesh is not None:
+            shutdown()
+
+
+def run_stages(args, device: str, mesh: Mesh | None) -> None:
+    """The CLI's stages (``--stage``); the coordinator prints."""
     params = Parameters(base_directory=args.base_directory)
     pipe = Pipeline(
         params,
         PipelineConfig(
             workdir=args.workdir, multi_dla=args.multi_dla,
             backend=args.backend,
-            device=args.device,
+            device=device,
             per_device_batch=args.per_device_batch,
             dtype=args.dtype,
             store_sample_likelihoods=not args.lean,
@@ -623,9 +762,11 @@ def main(argv=None) -> None:
             cddf_inputs=args.cddf_inputs,
             export_matlab=args.export_matlab,
         ),
+        mesh=mesh,
     )
+    say = print if pipe.writer else (lambda *a, **kw: None)
     if args.stage == "all":
-        print(json.dumps(pipe.run_all(), indent=2))
+        say(json.dumps(pipe.run_all(), indent=2))
         return
     catalog = pipe.run_catalog()
     if args.stage == "catalog":
@@ -648,7 +789,7 @@ def main(argv=None) -> None:
     if args.stage == "ascii":
         pipe.run_ascii(catalog, samples, results, test_mask)
     if args.stage == "analysis":
-        print(json.dumps(pipe.run_analysis(), indent=1)[:2000])
+        say(json.dumps(pipe.run_analysis(), indent=1)[:2000])
 
 
 if __name__ == "__main__":

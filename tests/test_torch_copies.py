@@ -7,25 +7,34 @@ feeds one copied module and its JAX original the same numpy inputs, or
 writes a file with one package and reads it with the other.
 """
 
+import contextlib
 import dataclasses
+import io
+import tarfile
 
 import numpy as np
 import pytest
 import torch
 
 import gp_dla_detection_tpu.analysis.cddf as j_cddf
+import gp_dla_detection_tpu.analysis.tables as j_tables
 import gp_dla_detection_tpu.catalog as j_catalog
+import gp_dla_detection_tpu.download as j_download
 import gp_dla_detection_tpu.io.fits as j_fits
 import gp_dla_detection_tpu.io.matio as j_matio
 import gp_dla_detection_tpu.params as j_params
 import gp_dla_detection_tpu.samples as j_samples
+import gp_dla_detection_tpu.utils.observability as j_obs
 import gp_dla_detection_tpu.utils.synthetic as j_synthetic
 import gp_dla_detection_tpu_torch.analysis.cddf as p_cddf
+import gp_dla_detection_tpu_torch.analysis.tables as p_tables
 import gp_dla_detection_tpu_torch.catalog as p_catalog
+import gp_dla_detection_tpu_torch.download as p_download
 import gp_dla_detection_tpu_torch.io.fits as p_fits
 import gp_dla_detection_tpu_torch.io.matio as p_matio
 import gp_dla_detection_tpu_torch.params as p_params
 import gp_dla_detection_tpu_torch.samples as p_samples
+import gp_dla_detection_tpu_torch.utils.observability as p_obs
 import gp_dla_detection_tpu_torch.utils.synthetic as p_synthetic
 from gp_dla_detection_tpu_torch.spectra import RaggedSpectra
 
@@ -175,10 +184,120 @@ def synthetic_workload(tmp_path, release):
     assert_same(ref, ours, "workload")
 
 
+def latex_tables(tmp_path, release):
+    rng = np.random.default_rng(6)
+    for x in (0.0, np.inf, 3.1e4, 0.0123, -2.5e-6, 7.0):
+        assert j_tables.format_latex_num(x) == p_tables.format_latex_num(x)
+    for a, b in ((0.0, 3e-4), (1.5, 2.5), (2e-6, 9e-6)):
+        assert j_tables.format_latex_two_num(a, b) == p_tables.format_latex_two_num(a, b)
+    lo = rng.uniform(0.1, 1.0, 5)
+    table = np.stack([np.linspace(2.0, 4.0, 5), lo, lo * 0.9, lo * 1.1, lo * 0.8, lo * 1.2])
+    np.savetxt(tmp_path / "dndx_all.txt", table)
+    np.savetxt(tmp_path / "omega_dla_all.txt", table * 1e-3)
+    cddf = table.copy()
+    cddf[0] = np.linspace(20.0, 22.0, 5)
+    cddf[1:, -1] = 0.0  # an empty last bin ends the CDDF table
+    np.savetxt(tmp_path / "cddf_all.txt", cddf)
+    np.savetxt(tmp_path / "cddf_one_bin.txt", cddf[:, :1])
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert j_tables.print_all_tables(tmp_path) == p_tables.print_all_tables(tmp_path)
+
+
+def fake_fetcher(log):
+    """Writes each planned file as a small fixture (tests/test_download.py's
+    layouts), logging what was asked for; nothing is fetched."""
+
+    def fetch(url, destination):
+        log.append((url, str(destination)))
+        destination.parent.mkdir(parents=True, exist_ok=True)
+        name = destination.name
+        if name == "BOSSLyaDR9_cat.txt":
+            rows = ["# header"]
+            for tid, z, n in ((101, 2.5, 20.6), (102, -1.0, 0.0), (103, 3.0, 21.2)):
+                row = ["x"] * 16
+                row[3], row[14], row[15] = str(tid), str(z), str(n)
+                rows.append(" ".join(row))
+            destination.write_text("\n".join(rows) + "\n")
+        elif name.endswith(".tgz"):
+            src = destination.parent / "src"
+            src.mkdir(exist_ok=True)
+            (src / "DLA_DR12_v2.dat").write_text("h1\nh2\n201 0 0 0 0 0 0 0 0 2.2 20.9\n")
+            (src / "LOS_DR12_v2.dat").write_text("h1\nh2\n201 0 0 0 2.5 1\n202 0 0 0 3.0 0\n")
+            with tarfile.open(destination, "w:gz") as tf:
+                for f in ("DLA_DR12_v2.dat", "LOS_DR12_v2.dat"):
+                    tf.add(src / f, arcname=f)
+        else:
+            destination.write_bytes(b"fits")
+
+    return fetch
+
+
+def download_plan_and_extraction(tmp_path, release):
+    from gp_dla_detection_tpu.params import Parameters as JParams
+    from gp_dla_detection_tpu_torch.params import Parameters as PParams
+
+    outs = {}
+    for name, mod, params_cls in (("jax", j_download, JParams), ("port", p_download, PParams)):
+        params = params_cls(base_directory=str(tmp_path / name))
+        plan = mod.download_plan(params)
+        log = []
+        mod.download_catalogs(params, fetcher=fake_fetcher(log))
+        outs[name] = {
+            "plan": [(i.url, str(i.destination.relative_to(tmp_path / name))) for i in plan],
+            "fetched": [u for u, _ in log],
+            "spectra": [str(c).replace(str(tmp_path / name), "") for c in
+                        mod.download_spectra_command(params)],
+            "catalogs": {
+                str(f.relative_to(tmp_path / name)): f.read_text()
+                for f in sorted((tmp_path / name).rglob("*_catalog"))
+            },
+        }
+    assert outs["jax"]["catalogs"] and outs["jax"]["plan"]
+    assert_same(outs["jax"], outs["port"], "download")
+    assert p_download.CATALOG_URLS == j_download.CATALOG_URLS
+    assert p_download.SPECTRA_RSYNC_ROOT == j_download.SPECTRA_RSYNC_ROOT
+
+
+def observability(tmp_path, release):
+    import os
+
+    assert j_obs.__all__ == p_obs.__all__
+    for value in (None, "", "0", "1", "yes"):
+        os.environ.pop("GPDLA_X", None)
+        if value is not None:
+            os.environ["GPDLA_X"] = value
+        assert j_obs.env_flag("GPDLA_X") == p_obs.env_flag("GPDLA_X")
+    os.environ.pop("GPDLA_X", None)
+    printed = {}
+    for name, mod in (("jax", j_obs), ("port", p_obs)):
+        err, reports = io.StringIO(), []
+        with contextlib.redirect_stderr(err):
+            mod.set_debug(True)
+            mod.debug_print("batch %d of %d", 3, 7)
+            mod.debug_print("plain")
+            mod.set_debug(False)
+            mod.debug_print("hidden")
+            with mod.Timer("stage", report=reports.append) as t:
+                pass
+            meter = mod.ProgressMeter(4, unit="spectra", every=1e9, stream=err)
+            meter.update(2)
+            meter.update(2)
+        assert t.elapsed >= 0 and reports[0].startswith("stage took ")
+        lines = err.getvalue().splitlines()
+        printed[name] = lines[:2] + [line.split("]")[0] for line in lines[2:]]
+        with pytest.raises(KeyError):
+            with mod.trace("span"):
+                raise KeyError("propagates")
+    assert printed["jax"] == printed["port"] == [
+        "batch 3 of 7", "plain", "[4/4",
+    ]
+
+
 @pytest.mark.parametrize(
     "case",
     [params_fields_and_derived, build_catalog, generate_dla_samples, fits_round_trip,
-     mat_round_trip, compute_all_snrs, dla_catalogue_statistics, synthetic_workload],
+     mat_round_trip, compute_all_snrs, dla_catalogue_statistics, synthetic_workload,
+     latex_tables, download_plan_and_extraction, observability],
     ids=lambda f: f.__name__,
 )
 def test_copy_equals_the_jax_module(case, tmp_path, synthetic_release):

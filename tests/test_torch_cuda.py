@@ -1,5 +1,7 @@
 """The CUDA evidence kernel on the card, against its plain versions:
-the single-absorber and the two-DLA pair configurations.
+the single-absorber and the two-DLA pair configurations.  Also the
+drivers on a one-rank NCCL mesh (its collectives on the card) against the
+same runs with no process group, and the on-device L-BFGS on the card.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); without a card they
 skip.  The file imports no jax, so on a machine without jax run it
@@ -7,6 +9,9 @@ without the suite's conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+
+import contextlib
+import socket
 
 import numpy as np
 import pytest
@@ -199,3 +204,85 @@ def test_pair_kernel_refuses_a_broken_base_layout(device):
     with pytest.raises(ValueError, match="base_replicates must be"):
         evidence.sample_log_likelihoods_pair(*args, z2, nhi2, base_replicates=3)
     assert evidence.pair_launch_count == before
+
+
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A one-rank NCCL process group on card 0 and its mesh."""
+    from gp_dla_detection_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+        shutdown,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"tcp://127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        yield make_mesh()
+    finally:
+        shutdown()
+
+
+def test_one_rank_nccl_mesh_equals_no_process_group(device):
+    import torch_distributed_worker as worker
+    from gp_dla_detection_tpu_torch.ops import evidence as ev
+    from gp_dla_detection_tpu_torch.parallel import ShardedRunConfig, process_spectra_sharded
+    from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi_sharded
+
+    params, model, spectra, offsets, nhis, prior_z, prior_f = worker.port_problem()
+    model = model.to(device=device, dtype=torch.float32)
+
+    def runs(mesh):
+        # the defaults: the card, float32, the kernels
+        out, launches = {}, []
+        for lean in (False, True):
+            before = ev.launch_count
+            res = process_spectra_sharded(
+                model, offsets, nhis, spectra, prior_z, prior_f, params=params, mesh=mesh,
+                config=ShardedRunConfig(per_device_batch=4, store_sample_likelihoods=not lean),
+            )
+            launches.append(ev.launch_count - before)
+            out[f"single_{lean}"] = worker.single_fields(res)
+        before = (ev.launch_count, ev.pair_launch_count)
+        chain = process_spectra_multi_sharded(
+            model, offsets, nhis, spectra, prior_z, worker.prior_num(), params=params, mesh=mesh,
+            config=ShardedRunConfig(per_device_batch=4, store_sample_likelihoods=False,
+                                    store_cddf_inputs=True),
+        )
+        launches.append((ev.launch_count - before[0], ev.pair_launch_count - before[1]))
+        out["chain"] = worker.multi_fields(chain)
+        return out, launches
+
+    ref, ref_launches = runs(None)
+    with one_rank_nccl() as mesh:
+        assert (mesh.backend, mesh.device) == ("nccl", torch.device("cuda", 0))
+        got, launches = runs(mesh)
+    # 11 spectra in batches of 4: three launches of each kernel per run
+    assert launches == ref_launches == [3, 3, (3, 3)]
+    for run, fields in ref.items():
+        assert sorted(got[run]) == sorted(fields)
+        for k, v in fields.items():
+            np.testing.assert_array_equal(got[run][k], v, err_msg=f"{run}.{k}")
+
+
+def test_device_lbfgs_on_the_card(device):
+    import torch_distributed_worker as worker
+    from gp_dla_detection_tpu_torch.models.training import TrainingData, learn_gp_model
+    from gp_dla_detection_tpu_torch.ops import lbfgs_device
+
+    fields, null_kw = worker.training_problem()
+    params = worker.training_params(null_kw, iterations=30, evals=60)
+    data = TrainingData(**fields)
+    before = lbfgs_device.host_syncs
+    _, card = learn_gp_model(data, params, optimizer="device", device=device)
+    syncs = lbfgs_device.host_syncs - before
+    _, cpu = learn_gp_model(data, params, optimizer="device", device="cpu")
+    # float64 on both: the same path to the reductions' rounding
+    assert (card.iterations, card.fun_evals, card.message) == (
+        cpu.iterations, cpu.fun_evals, cpu.message
+    )
+    np.testing.assert_allclose(card.x, cpu.x, rtol=1e-8, atol=1e-10)
+    # scalar reads only: one per line-search trial and one per iteration
+    assert syncs == 1 + (card.fun_evals - 1) + card.iterations

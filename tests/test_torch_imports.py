@@ -48,6 +48,11 @@ PORT_MODULES = [
     "gp_dla_detection_tpu_torch.spectra",
     "gp_dla_detection_tpu_torch.ops.pca",
     "gp_dla_detection_tpu_torch.ops.lbfgs",
+    "gp_dla_detection_tpu_torch.ops.lbfgs_device",
+    "gp_dla_detection_tpu_torch.parallel.mesh",
+    "gp_dla_detection_tpu_torch.utils.observability",
+    "gp_dla_detection_tpu_torch.analysis.tables",
+    "gp_dla_detection_tpu_torch.download",
     "gp_dla_detection_tpu_torch.models.training",
     "gp_dla_detection_tpu_torch.pipeline",
     "gp_dla_detection_tpu_torch.params",
@@ -138,7 +143,8 @@ def _imported_roots(tree) -> set[str]:
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py") if "_build" not in p.parts)
-    + ["chip_smoke.py"],
+    + ["chip_smoke.py", "examples/quickstart_torch.py",
+       ".claude/skills/verify/verify_drive_torch.py", "tests/torch_distributed_worker.py"],
 )
 def test_no_import_of_the_jax_package(path):
     # an AST scan: no import of jax or of the JAX package or any of its

@@ -187,7 +187,14 @@ def test_learn_gp_model_matches_jax(data_pair, params, tmp_path):
 
 
 def test_device_optimizer_not_ported(data_pair, params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptr.learn_gp_model(data_pair[0], params, optimizer="device", device="cpu")
+    # the on-device optimizer is ported (ops/lbfgs_device.py): with the
+    # small budget it walks the JAX device optimizer's path
+    ours, ref = data_pair
+    _, res = ptr.learn_gp_model(ours, params, optimizer="device", device="cpu")
+    _, jres = jtr.learn_gp_model(ref, params, optimizer="device")
+    assert (res.iterations, res.fun_evals, res.message) == (
+        jres.iterations, jres.fun_evals, jres.message
+    )
+    np.testing.assert_allclose(res.x, jres.x, rtol=1e-6, atol=1e-6 * np.max(np.abs(jres.x)))
     with pytest.raises(ValueError, match="unknown optimizer"):
         ptr.learn_gp_model(data_pair[0], params, optimizer="adam", device="cpu")
