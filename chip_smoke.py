@@ -51,7 +51,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    pair launch per batch in the multi stage, finite statistics, posteriors
    that sum to 1; on 32 release spectra the float32 CUDA CDDF reduction
    against the float64 plain one (mass channel = p_DLA to 1e-5, the same
-   exact entries away from knife edges); the lean R = 1 statistics
+   exact entries away from knife edges; the second-DLA entries that miss
+   float64 on a knife edge counted for the float32 kernel and the float32
+   plain path alike); the lean R = 1 statistics
    against the classic full-matrix run's within the R = 1 bounds of
    validation/RESULTS_LEAN_CDDF.md; the R = 4 statistics' distance from
    classic beside the scatter of the base redraw (R = 1 and R = 4 at
@@ -68,12 +70,23 @@ Phases, each reported on its own line; any failure exits non-zero:
    single (and one pair) launch per rank per super-batch, checkpoints
    written by rank 0 alone and resumed by a one-rank rerun; on a data 1 x
    sample 2 mesh the single driver within 5e-5 normalized and the
-   decision gate; the training on phase 7's release data: the device
+   decision gate, and the fused lean chain with CDDF inputs under
+   ``backend="torch"`` (float32, the plain path: the kernels run
+   data-parallel only, and the defaults are refused there) on phase 6's
+   first 64 spectra, against this process's run: bit-identical, or within
+   5e-5 normalized and the decision gate with the reason printed, the
+   same 3-class picks, the CDDF hist within 1e-6, on every rank; the
+   training on phase 7's release data: the device
    L-BFGS against the host one on the card (scalar reads per evaluation
    counted), and two gloo ranks to the one-rank NLL within 1e-6; each
    run's wall seconds (two ranks on one card measure correctness, not
    scaling);
-9. print a JSON line describing both kernel configurations (times, bound,
+9. ``scripts/torch_scale_demo.py`` at its defaults: 1024 spectra x
+   10,000 samples through ``process_spectra_multi_sharded``'s classic
+   two-stage flow with per-batch checkpoints, float32, the kernels; its
+   JSON lines, the single and pair launches per batch from the counters,
+   finite posteriors that sum to 1, exact-multiplicity accuracy >= 0.95;
+10. print a JSON line describing both kernel configurations (times, bound,
    yardstick, launches, errors, the card) and, last, a JSON line with the
    device.
 
@@ -114,6 +127,10 @@ REPLAY_RTOL = 1e-6           # device reduction vs the host reducer, same inputs
 REDRAWS = ((1, 0), (1, 1), (1, 2), (1, 3), (4, 0), (4, 1), (4, 2), (4, 3))   # (R, base seed)
 RANK_BATCH = BATCH            # phase 8: per-rank batch (super-batch 2 x 128 on 2 ranks)
 RANK_TIMEOUT = 600            # phase 8: seconds the ranks of one spawn may take
+SAMPLE_CHAIN = 64             # phase 8: spectra of the sample-axis chain (plain path)
+SAMPLE_CHAIN_BATCH = 32
+SCALE_DEMO_ACC = 0.95         # phase 9: exact-multiplicity accuracy floor (the JAX
+                              # script's seed-7 run: 0.987, CLAUDE.md)
 # the previous design's kernel times at the phase-3/5 shapes, for
 # comparison (PERF.md, PR 3's chip runs on NVIDIA H100 80GB HBM3, 700.00 W)
 PR3_MS = {"single": "72.78-72.96", "pair R=4": "91.48-91.58"}
@@ -583,22 +600,24 @@ def stat_deviation(a, b) -> float:
     return worst
 
 
-def exact_entry_mismatches(a, b, p_switch: float) -> int:
-    """Exact CDDF entries (p >= p_switch) in one reduction and not the
-    other, per spectrum, ignoring knife edges: an entry whose p lies
-    within KNIFE_EDGE (relative) of p_switch may fall on either side.
-    ``a``, ``b``: (N, K) probabilities and (N, K) index keys."""
-    import numpy as np
-
+def exact_entry_diff(a, b, p_switch: float) -> dict:
+    """{(row, key): p} of every exact CDDF entry (p >= p_switch) in one
+    reduction and not the other, knife edges included.  ``a``, ``b``:
+    (N, K) probabilities and (N, K) index keys."""
     (pa, ka), (pb, kb) = a, b
-    bad = 0
+    out = {}
     for i in range(len(pa)):
         sa = {int(k): p for k, p in zip(ka[i], pa[i]) if p >= p_switch}
         sb = {int(k): p for k, p in zip(kb[i], pb[i]) if p >= p_switch}
-        for k in set(sa) ^ set(sb):
-            p = sa.get(k, sb.get(k))
-            bad += p >= p_switch * (1 + KNIFE_EDGE)
-    return bad
+        out.update({(i, k): sa.get(k, sb.get(k)) for k in set(sa) ^ set(sb)})
+    return out
+
+
+def exact_entry_mismatches(a, b, p_switch: float) -> int:
+    """The entries of ``exact_entry_diff`` away from knife edges: an
+    entry whose p lies within KNIFE_EDGE (relative) of p_switch may fall
+    on either side."""
+    return sum(p >= p_switch * (1 + KNIFE_EDGE) for p in exact_entry_diff(a, b, p_switch).values())
 
 
 def nonfinite_json(x, path: str = "") -> list[str]:
@@ -736,7 +755,8 @@ def release_phase(seed: int, smi: str, chain, device: str = "cuda", backend: str
         training = pipe.training_data(catalog, pipe.run_preload(catalog))
         sub = padded.slice(slice(0, F64_SUBSET))
         reduced = {}
-        for name, dtype, be in (("f32", torch.float32, backend), ("f64", torch.float64, "torch")):
+        for name, dtype, be in (("f32", torch.float32, backend), ("f64", torch.float64, "torch"),
+                                ("f32 torch", torch.float32, "torch")):
             reduced[name] = sharded_multi.process_spectra_multi_lean(
                 model.to(dtype=dtype), samples.offset_samples, samples.nhi_samples, sub,
                 prior_z, prior_num, params=params, batch_size=F64_SUBSET, sample_chunk=500,
@@ -755,10 +775,18 @@ def release_phase(seed: int, smi: str, chain, device: str = "cuda", backend: str
             (a.ex2_p, a.ex2_idx * S + a.ex2_base), (b.ex2_p, b.ex2_idx * S + b.ex2_base), p_switch
         )
         n_exact = int((b.ex1_p >= p_switch).sum()), int((b.ex2_p >= p_switch).sum())
+        # knife edges included: the float32 kernel's and the float32 plain
+        # path's (JAX's XLA formulas) second-DLA entries missing float64
+        second = lambda c: (c.ex2_p, c.ex2_idx * S + c.ex2_base)
+        edge = {name: exact_entry_diff(second(reduced[name].cddf_inputs), second(b), p_switch).keys()
+                for name in ("f32", "f32 torch")}
         say(f"phase 7: CDDF reduction f32 cuda vs f64 torch (R=1) on {F64_SUBSET} release spectra: "
             f"mass channel vs p_DLA max rel {mass_err['f32']:.2e} (f32) / {mass_err['f64']:.2e} "
-            f"(f64); exact entries (f64: {n_exact[0]} first-DLA, {n_exact[1]} second-DLA) "
-            f"differing away from knife edges: {bad1} first, {bad2} second")
+            f"(f64) / {mass_err['f32 torch']:.2e} (f32 torch); exact entries (f64: {n_exact[0]} "
+            f"first-DLA, {n_exact[1]} second-DLA) differing away from knife edges: {bad1} first, "
+            f"{bad2} second; second-DLA entries differing from f64 with knife edges: f32 cuda "
+            f"{len(edge['f32'])}, f32 torch {len(edge['f32 torch'])}, both "
+            f"{len(edge['f32'] & edge['f32 torch'])}")
         if not max(mass_err.values()) < MASS_RTOL:
             fail(f"the CDDF mass channel misses p_DLA: {mass_err}")
         if bad1 or bad2:
@@ -915,6 +943,22 @@ def rank_runs(mesh, inputs, ckpt_root):
     ]
 
 
+def sample_chain_run(mesh, inputs):
+    """Phase 8's fused lean chain for the sample axis: ``backend="torch"``
+    (the kernels run data-parallel only), float32 on the card, CDDF
+    inputs, on phase 6's first SAMPLE_CHAIN spectra at full width."""
+    from gp_dla_detection_tpu_torch.parallel.sharded_inference import ShardedRunConfig
+    from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi_sharded
+
+    model, offsets, nhis, spectra, prior_z, prior_num, params = inputs
+    return process_spectra_multi_sharded(
+        model, offsets, nhis, spectra.slice(slice(0, SAMPLE_CHAIN)), prior_z, prior_num,
+        params=params, mesh=mesh,
+        config=ShardedRunConfig(per_device_batch=SAMPLE_CHAIN_BATCH, backend="torch",
+                                store_sample_likelihoods=False, store_cddf_inputs=True),
+    )
+
+
 def load_inputs(path):
     """Phase 6's workload as saved by ``ranks_phase``: (model, offsets,
     nhis, spectra, prior z, prior DLA counts) on the card, and the
@@ -965,6 +1009,7 @@ def rank_worker(rank, world, addr, backend, inputs_path, params, training_params
         ShardedRunConfig,
         process_spectra_sharded,
     )
+    from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi_lean
 
     writes = [0]
     savez = sharded_inference.atomic_savez
@@ -993,6 +1038,15 @@ def rank_worker(rank, world, addr, backend, inputs_path, params, training_params
             runs.append(("sample_full", lambda: process_spectra_sharded(
                 model, offsets, nhis, spectra, prior_z, prior_num >= 1, params=params,
                 mesh=sample_mesh, config=ShardedRunConfig(per_device_batch=RANK_BATCH))))
+            runs.append(("sample_chain", lambda: sample_chain_run(sample_mesh, inputs)))
+            # the defaults (the kernels) on the sample axis: refused
+            try:
+                process_spectra_multi_lean(model, offsets, nhis, spectra, prior_z, prior_num,
+                                           params=params, mesh=sample_mesh)
+                refused = ""
+            except ValueError as exc:
+                refused = str(exc)
+            (out_dir / f"{backend}_refused_p{rank}.json").write_text(json.dumps(refused))
         for name, run in runs:
             evidence.launch_count = evidence.pair_launch_count = 0
             writes[0] = 0
@@ -1115,6 +1169,11 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
             ref[name] = result_arrays(run())
             sync()
             ref_seconds[name] = time.perf_counter() - t0
+        sync()
+        t0 = time.perf_counter()
+        ref_chain = result_arrays(sample_chain_run(None, (*inputs, params)))
+        sync()
+        ref_chain_s = time.perf_counter() - t0
 
         wall = {"gloo": run_ranks(2, "gloo", inputs_path, params, training_params, tmp),
                 "nccl": run_ranks(1, "nccl", inputs_path, params, training_params, tmp)}
@@ -1180,6 +1239,54 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
         if not err[0] < NORMALIZED_BOUND or hard or not p99 < DECISION_P99:
             fail("phase 8: the sample-axis run fails the kernel bound or the decision gate")
 
+        # ---- the fused chain on the sample axis ("torch"), and the
+        # kernels' refusal of it
+        with np.load(tmp / "gloo_sample_chain.npz") as f:
+            got = {k: f[k] for k in f.files}
+        metas = [meta("gloo", "sample_chain", r) for r in range(2)]
+        same, _ = compare_results(got, ref_chain)
+        replicated = all(m["digest"] == digest(got) for m in metas)
+        hist_rel = float(np.max(np.abs(got["cddf_hist"].astype(np.float64) - ref_chain["cddf_hist"])
+                                / np.maximum(np.abs(ref_chain["cddf_hist"]), 1e-30)))
+        pick = lambda a: np.argmax(a["multi_model_posteriors"], axis=1)
+        picks_same = np.array_equal(pick(got), pick(ref_chain))
+        nan_same = np.array_equal(np.isnan(got["multi_log_likelihoods_dla2"]),
+                                  np.isnan(ref_chain["multi_log_likelihoods_dla2"]))
+        ev_err = max(
+            normalized_error(torch.as_tensor(np.nan_to_num(got[k])),
+                             torch.as_tensor(np.nan_to_num(ref_chain[k])))[0]
+            for k in ("log_likelihoods_no_dla", "log_likelihoods_dla", "multi_log_likelihoods_dla2")
+        )
+        p_one, p_split = ref_chain["p_dlas"], got["p_dlas"]
+        hard = int((((p_one > 0.9) != (p_split > 0.9)) & (np.abs(p_one - 0.9) > DECISION_MARGIN)).sum())
+        p99 = float(np.quantile(np.abs(p_split - p_one), 0.99))
+        if same:
+            verdict = "bit-identical to one process"
+        else:
+            diff = sorted(k for k in ref_chain if not k.startswith("cddf_")
+                          and not np.array_equal(got[k], ref_chain[k],
+                                                 equal_nan=got[k].dtype.kind == "f"))
+            verdict = (f"not bit-identical ({', '.join(diff)} differ); evidences normalized "
+                       f"{ev_err:.3e}, flips outside margin {hard}, |dp| p99 {p99:.3e}")
+        refused = [json.loads((tmp / f"gloo_refused_p{r}.json").read_text()) for r in range(2)]
+        chain_launches = [m["launches"] for m in metas]
+        say(f"phase 8: fused lean chain (torch, float32, CDDF inputs) on a data 1 x sample 2 mesh "
+            f"(2 gloo ranks, {len(offsets) // 2} columns of the one-device layout each, both stages) on "
+            f"{SAMPLE_CHAIN} spectra, batch {SAMPLE_CHAIN_BATCH}: wall {max(m['seconds'] for m in metas):.3f} s "
+            f"(one process: {ref_chain_s:.3f} s); {verdict}; 3-class picks equal {picks_same}, "
+            f"NaN pair rows equal {nan_same}, CDDF hist max rel {hist_rel:.1e}; every rank holds "
+            f"it {replicated}; launches per rank {chain_launches}; the kernels (the defaults) "
+            f"refused on the sample mesh by every rank {all('data-only mesh' in r for r in refused)} "
+            f"({smi})")
+        if not replicated or not picks_same or not nan_same or not hist_rel <= REPLAY_RTOL:
+            fail("phase 8: the sample-axis chain differs from one process")
+        if not same and (not ev_err < NORMALIZED_BOUND or hard or not p99 < DECISION_P99):
+            fail("phase 8: the sample-axis chain fails the kernel bound or the decision gate")
+        if any(l != [0, 0] for l in chain_launches):
+            fail(f"phase 8: the torch sample-axis chain launched kernels: {chain_launches}")
+        if not all("data-only mesh" in r for r in refused):
+            fail(f"phase 8: the kernels were not refused on the sample mesh: {refused}")
+
         # ---- training: the device optimizer on the card, and two ranks
         results = {}
         for optimizer in ("host", "device"):
@@ -1208,6 +1315,45 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
     say(f"phase 8 ok: 2 gloo ranks {wall['gloo']:.1f} s, 1 NCCL rank {wall['nccl']:.1f} s "
         "(process start and CUDA set-up included)")
     return {"wall": wall, "device_lbfgs_syncs_per_eval": d_syncs / d.fun_evals}
+
+
+def scale_demo_phase(smi: str) -> dict:
+    """Phase 9: ``scripts/torch_scale_demo.py`` at its defaults (1024
+    spectra x 10,000 samples, the classic two-stage flow with per-batch
+    checkpoints, float32, the kernels): its JSON lines, the launches per
+    batch from the counters, finite posteriors that sum to 1, and the
+    exact-multiplicity accuracy above SCALE_DEMO_ACC."""
+    import runpy
+
+    import numpy as np
+
+    from gp_dla_detection_tpu_torch.ops import evidence
+
+    demo = runpy.run_path(str(Path(__file__).resolve().parent / "scripts" / "torch_scale_demo.py"))
+    evidence.launch_count = evidence.pair_launch_count = 0
+    out = demo["main"]()
+    launches = (evidence.launch_count, evidence.pair_launch_count)
+    res = out["results"]
+    n_batches = -(-out["n_spectra"] // 256)
+    post = res.model_posteriors
+    finite = bool(np.isfinite(post).all() and np.isfinite(res.single.p_dlas).all())
+    sums = bool(np.allclose(post.sum(axis=1), 1.0, rtol=0, atol=1e-9))
+    say(f"phase 9: scale demo, {out['n_spectra']} spectra x {out['num_samples']} samples "
+        f"(classic two-stage flow, checkpoints, {out['backend']}, float32): {out['seconds']} s = "
+        f"{out['spectra_per_sec_end_to_end']} spectra/s end to end; launches (single, pair) "
+        f"{launches} for {n_batches} batches of 256 = ({launches[0] / n_batches:.2f}, "
+        f"{launches[1] / n_batches:.2f}) per batch; exact multiplicity {out['exact_multiplicity_acc']}, "
+        f"detection {out['detection_rate']}, clean false positives {out['clean_false_positive_rate']}; "
+        f"posteriors finite {finite}, sum to 1 {sums} ({smi})")
+    if not finite or not sums:
+        fail("phase 9: the scale demo's posteriors are not finite or do not sum to 1")
+    if not all(launches):
+        fail(f"phase 9: the scale demo launched (single, pair) {launches} kernels")
+    if not out["exact_multiplicity_acc"] >= SCALE_DEMO_ACC:
+        fail(f"phase 9: exact-multiplicity accuracy {out['exact_multiplicity_acc']} < {SCALE_DEMO_ACC}")
+    say("phase 9 ok")
+    return {"launches": launches, "batches": n_batches,
+            "spectra_per_s": out["spectra_per_sec_end_to_end"], "seconds": out["seconds"]}
 
 
 def kernel_inputs(w, params, offsets, nhis, n, device, dtype, num_lines=3):
@@ -1610,14 +1756,18 @@ def main() -> None:
         release,
     )
 
-    # ---- phase 9: results
+    # ---- phase 9: the scale demo
+    demo = scale_demo_phase(smi)
+    dl = demo["launches"]
+
+    # ---- phase 10: results
     say(json.dumps({"kernels": [
         {
             "name": "evidence_single_f32",
             "route": "cuda",
             "source": "gp_dla_detection_tpu_torch/csrc/evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/evidence_pallas.py:106",
-            "launches": rl["process"][0] + rl["multi"][0],
+            "launches": rl["process"][0] + rl["multi"][0] + dl[0],
             "launches_release_process": rl["process"][0],
             "launches_release_multi": rl["multi"][0],
             "launches_lean_chain": lean_launches[0],
@@ -1634,7 +1784,9 @@ def main() -> None:
             "library_call": "torch.bmm (B,S,P)x(B,P,240) fp32, TF32 off: the contraction alone",
             "ms_31_lines_full_grid": ms31,
             "bound_ms_31_lines_full_grid": bound31[0],
-            "launches_per_batch": {"process": rl["process"][0] / rb, "multi": rl["multi"][0] / rb},
+            "launches_scale_demo": dl[0],
+            "launches_per_batch": {"process": rl["process"][0] / rb, "multi": rl["multi"][0] / rb,
+                                   "scale_demo": dl[0] / demo["batches"]},
             "spectra_per_s": rate,
             "card": smi,
         },
@@ -1643,8 +1795,9 @@ def main() -> None:
             "route": "cuda",
             "source": "gp_dla_detection_tpu_torch/csrc/evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/evidence_pallas.py:106",
-            "launches": rl["multi"][1],
+            "launches": rl["multi"][1] + dl[1],
             "launches_lean_chain": lean_launches[1],
+            "launches_scale_demo": dl[1],
             "max_abs_err": pair_worst[1],
             "max_normalized_err": pair_worst[0],
             "ms": pair_ms,
@@ -1658,12 +1811,14 @@ def main() -> None:
             "library_call": "torch.bmm (B,S,P)x(B,P,240) fp32, TF32 off: the contraction alone",
             "ms_31_lines_full_grid": pair_ms31,
             "bound_ms_31_lines_full_grid": pair_bound31[0],
-            "launches_per_batch": {"multi": rl["multi"][1] / rb},
+            "launches_per_batch": {"multi": rl["multi"][1] / rb,
+                                   "scale_demo": dl[1] / demo["batches"]},
             "lean_chain_spectra_per_s": lean_rate,
             "lean_chain_r1_spectra_per_s": len(spectra2) / lean1_s,
             "lean_chain_cddf_off_spectra_per_s": release["cddf_off_spectra_per_s"],
             "lean_chain_cddf_on_spectra_per_s": release["cddf_on_spectra_per_s"],
             "release_stage_seconds": release["stage_seconds"],
+            "scale_demo_spectra_per_s": demo["spectra_per_s"],
             "card": smi,
         },
     ]}))

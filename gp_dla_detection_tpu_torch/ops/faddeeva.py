@@ -11,7 +11,8 @@ feed the CUDA evidence kernel, which works in real pairs.
 about the real axis for y < 1e-3), used in float64.  ``wofz_real_fast``
 = ``exp_core`` + (2y/sqrt(pi)) ``g_function`` is the small-y fast path
 used in float32 and by the kernel.  See the JAX module for the error
-budget of each branch.
+budget of each branch.  ``voigt_function`` is the normalized Voigt
+profile (libcerf's ``voigt``) on top of ``wofz_real``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "voigt_function",
     "wofz_real",
     "wofz_real_fast",
     "g_function",
@@ -249,3 +251,27 @@ def wofz_real_fast(x, y):
     """
     x, y = _as_pair(x, y)
     return exp_core(x * x, y) + (2.0 / _SQRT_PI) * y * g_function(x)
+
+
+def voigt_function(v, sigma, gamma):
+    """libcerf-compatible Voigt function (voigt.c:288).
+
+    Normalized Voigt profile: the convolution of a Gaussian of standard
+    deviation ``sigma`` with a Lorentzian of half-width ``gamma``,
+    evaluated at ``v`` (all in the same units, e.g. cm/s), through the
+    accurate :func:`wofz_real`.  The dtype is ``v``'s (promoted with a
+    tensor ``sigma``'s), as in the JAX package.
+    """
+    v = torch.as_tensor(v)
+    if not v.dtype.is_floating_point:
+        v = v.to(torch.get_default_dtype())
+    dtype = v.dtype
+    if isinstance(sigma, torch.Tensor):
+        dtype = torch.promote_types(dtype, sigma.dtype)
+    const = lambda a: torch.as_tensor(a, dtype=dtype, device=v.device)
+    sigma = const(sigma)
+    sqrt2_sigma = torch.sqrt(const(2.0)) * sigma
+    x = v.to(dtype) / sqrt2_sigma
+    y = torch.broadcast_to(const(gamma) / sqrt2_sigma, x.shape)
+    norm = 1.0 / (sigma * torch.sqrt(const(2.0 * np.pi)))
+    return wofz_real(x, y) * norm

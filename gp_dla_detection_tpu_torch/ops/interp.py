@@ -1,16 +1,36 @@
-"""Linear interpolation on a uniform grid (MATLAB interp1 semantics).
+"""Linear interpolation (MATLAB interp1 / griddedInterpolant semantics).
 
-Counterpart of ``gp_dla_detection_tpu/ops/interp.py`` for the two
-functions the inference path uses.  The query tensor may carry any batch
-axes (the JAX package vmaps over spectra; here the batch axis is written
-out), the grid ``xp`` is 1-D and strictly increasing.
+Counterpart of ``gp_dla_detection_tpu/ops/interp.py``.  The query tensor
+may carry any batch axes (the JAX package vmaps over spectra; here the
+batch axis is written out), the grid ``xp`` is 1-D and strictly
+increasing.  ``interp1`` and ``interp_columns`` bracket by binary search
+on any grid; the ``_uniform`` variants by arithmetic on a uniformly
+spaced grid, bit-identical to the binary search there, and
+``interp_stack_uniform`` (the inference path) interpolates several
+quantities with one bracketing and one row gather.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["interp_stack_uniform"]
+__all__ = [
+    "interp1",
+    "interp_columns",
+    "interp1_uniform",
+    "interp_columns_uniform",
+    "interp_stack_uniform",
+]
+
+
+def _bracket(xp, x):
+    """Interval index and weight of each x on any increasing xp, by
+    searchsorted(side="right") (clamped to the end intervals)."""
+    idx = torch.clamp(torch.searchsorted(xp, x, right=True) - 1, 0, xp.shape[0] - 2)
+    x0 = xp[idx]
+    x1 = xp[idx + 1]
+    t = (x - x0) / (x1 - x0)
+    return idx, t
 
 
 def _bracket_uniform(xp, x):
@@ -33,6 +53,39 @@ def _bracket_uniform(xp, x):
     x1 = xp[idx + 1]
     t = (x - x0) / (x1 - x0)
     return idx, t
+
+
+def _lerp(fp, idx, t):
+    return fp[idx] * (1.0 - t) + fp[idx + 1] * t
+
+
+def _lerp_columns(columns, idx, t):
+    return columns[idx, :] * (1.0 - t)[..., None] + columns[idx + 1, :] * t[..., None]
+
+
+def interp1(xp, fp, x):
+    """Linear interpolation of ``fp`` (n,) on ``xp`` at ``x`` (...),
+    edge-clamped like griddedInterpolant inside the data range (queries
+    outside are extrapolated from the end interval)."""
+    return _lerp(fp, *_bracket(xp, x))
+
+
+def interp_columns(xp, columns, x):
+    """Interpolate the columns of ``columns`` (n, k) at ``x`` (...):
+    (..., k), one bracketing shared by every column (the reference's
+    M_interpolator, process_qsos.m:67-68)."""
+    return _lerp_columns(columns, *_bracket(xp, x))
+
+
+def interp1_uniform(xp, fp, x):
+    """:func:`interp1` for a uniformly spaced xp, without the binary
+    search (bit-identical on such grids)."""
+    return _lerp(fp, *_bracket_uniform(xp, x))
+
+
+def interp_columns_uniform(xp, columns, x):
+    """:func:`interp_columns` for a uniformly spaced xp."""
+    return _lerp_columns(columns, *_bracket_uniform(xp, x))
 
 
 def interp_stack_uniform(xp, stack, x):

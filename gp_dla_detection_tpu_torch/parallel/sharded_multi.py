@@ -25,10 +25,23 @@ the whole catalogue, which translates the pair indices back to original
 sample numbering and forms the posteriors; the coordinator keeps one
 checkpoint stream.  The (N, S) matrices never exist on the host, so the
 results carry None for them.  The base columns depend on ``base_seed``,
-R and S alone, never on the rank: the mesh changes no draw.  A sample
-axis is refused (the R-layout is bound to the kernel's 256-column tile;
-the JAX package's XLA path shards the whole chain along samples, which
-is not ported).
+R and S alone, never on the rank: the mesh changes no draw.
+
+On a sample axis (``backend="torch"``, as the JAX package's XLA path
+shards the whole chain) each sample rank evaluates a contiguous block of
+the one-device column layout in both stages (every rank evaluates all
+columns when they do not divide).  Each stage's rows are gathered along
+the sample axis, which puts the blocks back in that layout, before
+anything reads a whole row: the redraw and ``pack_lean`` after the
+single stage, ``pack_lean_pair`` and the CDDF reducer after the pair
+stage, whose argmax and top-k break ties by column position.  The base
+columns are computed once on the whole axis, so every rank redraws the
+one-device pairs.  Blocks of the layout, not z-sorted ones as the single
+driver takes for the kernel's window: on the card a float32 sample's
+plain-path evidence moves in its last bits with its column's position
+(``scripts/torch_sample_layout_probe.py``), and halves of the layout
+give the one-device values.  The kernels run data-parallel only:
+``"cuda"`` refuses a sample axis, as the JAX package's Pallas path does.
 
 :func:`process_spectra_multi_sharded` is the driver the pipeline calls:
 the lean chain, or the classic two-pass flow with the single stage's
@@ -178,24 +191,25 @@ def process_spectra_multi_lean(
     with a warning, checkpoints of another run or of the JAX package.
     ``store_cddf_inputs``: also reduce the CDDF inputs in each batch
     (checkpointed with it); the results then carry ``cddf_inputs``.
-    ``mesh``: default ``make_mesh()``; a data axis only.
+    ``mesh``: default ``make_mesh()``; a sample axis under ``"torch"``
+    only.  The results and checkpoints do not depend on the mesh.
     """
     if mesh is None:
         mesh = make_mesh()
     device, dtype, backend = resolve_run(rank_device(device, mesh), dtype, backend)
+    use_cuda = backend == "cuda"
+    if use_cuda and mesh.shape[SAMPLE_AXIS] > 1:
+        raise ValueError(
+            "the fused lean two-stage driver runs its CUDA kernels "
+            "data-parallel only (a sample axis would replicate the kernel "
+            f"work across {mesh.shape[SAMPLE_AXIS]} ranks); use a data-only "
+            "mesh with backend='cuda', or backend='torch', which shards "
+            "the full chain on any mesh"
+        )
     if params is None:
         params = Parameters()
     if dtype not in _NUMPY_DTYPES:
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
-    if mesh.shape[SAMPLE_AXIS] > 1:
-        raise ValueError(
-            "the fused lean two-stage driver runs data-parallel only: its "
-            "base-draw layout is bound to the kernel's 256-column sample "
-            f"tile, so a sample axis ({mesh.shape[SAMPLE_AXIS]} ranks) is "
-            "refused under either backend; use a data-only mesh "
-            "(make_mesh() with sample_parallelism=1)"
-        )
-    use_cuda = backend == "cuda"
     R = base_replicates
     if R is None:
         R = FUSED_LEAN_BASE_REPLICATES if use_cuda else 1
@@ -255,6 +269,24 @@ def process_spectra_multi_lean(
     off_orig, nh_orig = on_device(offsets), on_device(nhis)
     off_pair = off_orig if order is None else on_device(offsets[order])
     nh_pair = nh_orig if order is None else on_device(nhis[order])
+    # this sample rank's columns of both stages: a contiguous block of
+    # the one-device layout ("torch": the samples in original order in
+    # both stages), in tensors of their own
+    n_sample = mesh.shape[SAMPLE_AXIS]
+    block = None
+    if n_sample > 1 and S % n_sample == 0:
+        size = S // n_sample
+        block = slice(mesh.sample_index * size, (mesh.sample_index + 1) * size)
+        off_orig = off_pair = on_device(offsets[block])
+        nh_orig = nh_pair = on_device(nhis[block])
+
+    def whole_rows(t):
+        """A stage's (B, block) columns gathered along the sample axis:
+        in rank order, the one-device column layout."""
+        if block is None:
+            return t
+        return on_device(fetch_global(t, mesh, SAMPLE_AXIS, dim=1))
+
     cols_dev = torch.as_tensor(cols, device=device)
     base_tables = on_device(packed_base_tables(offsets, nhis, _NUMPY_DTYPES[dtype]))
 
@@ -334,16 +366,18 @@ def process_spectra_multi_lean(
             *spec, *model_args, off_orig, nh_orig, params=params,
             sample_chunk=sample_chunk, backend=backend, sample_window=window,
         )
-        sll = out1["sample_log_likelihoods_dla"]
+        sll = whole_rows(out1["sample_log_likelihoods_dla"])
         ev1, map1 = pack_lean(sll)
         base_cols = device_inverse_cdf_grid(sll, cols_dev, grid_size)
         vals = base_tables[base_cols]                    # (B, S, 2)
-        lls2 = batch_dla2_log_likelihoods(
+        if block is not None:
+            vals = vals[:, block].contiguous()
+        lls2 = whole_rows(batch_dla2_log_likelihoods(
             *spec, *model_args, off_pair, nh_pair, vals[..., 0], vals[..., 1],
             params=params, min_sep_z=min_sep_z, backend=backend,
             sample_window=window, sample_chunk=sample_chunk,
             base_replicates=R if use_cuda else 1,
-        )
+        ))
         ev2, map2, map_base = pack_lean_pair(lls2, base_cols)
         cddf = {}
         if store_cddf_inputs:

@@ -8,12 +8,15 @@
   draws, with second DLAs);
 - the lean statistics (``LeanDLACatalogue``: CDDF, dN/dX, both Omega_DLA
   estimators, a bootstrap draw) against JAX's at 1e-9, at R = 1 and 4;
-- float32 runs of both packages against JAX's float64 reduction;
+- float32 runs of both packages against JAX's float64 reduction, and on
+  broad posteriors the second DLA's float32 exact entries against JAX's
+  float32 ones and both float64 ones;
 - the mass identity, the z-sorted pair axis (the reducer and the
   driver), top-k tie order, resume, the artifact round trip and the
   refusals.
 """
 
+import dataclasses
 import sys
 import warnings
 from pathlib import Path
@@ -351,6 +354,57 @@ def test_float32_reduction_against_jax(problem, port_lean32, jax_lean):
     assert (b.ex1_p >= p_switch).sum() >= 3
     for i in range(len(a.ex1_p)):
         assert exact(a, i, 1.1) <= exact(b, i, 1.0) and exact(b, i, 1.1) <= exact(a, i, 1.0), i
+
+
+def with_noise(problem, scale: float, seed: int = 11):
+    """``problem`` with its noise raised ``scale`` times (flux and noise
+    variance), which broadens the absorbers' posteriors."""
+    params, model, spectra, *rest = problem
+    rng = np.random.default_rng(seed)
+    extra = rng.normal(size=spectra.flux.shape) * np.sqrt(spectra.noise_variance * (scale**2 - 1))
+    spectra = dataclasses.replace(
+        spectra, flux=spectra.flux + extra, noise_variance=spectra.noise_variance * scale**2
+    )
+    return (params, model, spectra, *rest)
+
+
+@pytest.fixture(scope="module")
+def broad_runs():
+    """The float32 second-DLA question: the R = 4 case's problem (second
+    DLAs in every fourth sightline, 320 samples) with the noise doubled,
+    through both packages at R = 1 in float64 and float32."""
+    problem = with_noise(injected_problem(second_dlas=True), 2.0)
+    problem = (*problem[:3], *samples_320(), *problem[5:])
+    return {
+        "jax64": run_jax(problem), "jax32": run_jax(problem, dtype="float32"),
+        "port64": run_port(problem), "port32": run_port(problem, dtype=torch.float32),
+    }
+
+
+def test_float32_second_dla_exact_entries_equal_jax(broad_runs):
+    """The second DLA's exact CDDF entries ((pair sample, base sample) at
+    p2 >= p_switch) and every top-k entry above p2 = 1e-3: the port's
+    float32 run gives JAX's float32 entries entry for entry, and both
+    give the float64 ones.  A float32 run that misses float64 does so
+    through the float32 arithmetic both packages share (a redraw or a p2
+    on a knife edge), not through the port."""
+    spec = broad_runs["jax64"].cddf_inputs.spec
+    for cut in (spec.p_switch, 1e-3):
+        entries = {
+            name: [
+                {(int(a), int(b)) for a, b, p in zip(c.ex2_idx[i], c.ex2_base[i], c.ex2_p[i]) if p >= cut}
+                for i in range(len(c.ex2_p))
+            ]
+            for name, c in ((n, r.cddf_inputs) for n, r in broad_runs.items())
+        }
+        assert entries["port32"] == entries["jax32"], cut
+        assert entries["port32"] == entries["port64"] == entries["jax64"], cut
+    exact = broad_runs["jax64"].cddf_inputs
+    assert (exact.ex2_p >= spec.p_switch).sum() >= 3
+    # broad first-DLA posteriors: in no DLA sightline does one sample
+    # hold 0.9 of the first DLA (0.31-0.82 here)
+    dla = broad_runs["jax64"].single.p_dlas > 0.5
+    assert dla.sum() >= 4 and (exact.ex1_p[dla].max(axis=1) < 0.9).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

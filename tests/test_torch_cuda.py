@@ -1,7 +1,8 @@
 """The CUDA evidence kernel on the card, against its plain versions:
 the single-absorber and the two-DLA pair configurations.  Also the
 drivers on a one-rank NCCL mesh (its collectives on the card) against the
-same runs with no process group, and the on-device L-BFGS on the card.
+same runs with no process group, the on-device L-BFGS on the card, and
+the golden fixture through the float64 plain path on the card.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); without a card they
 skip.  The file imports no jax, so on a machine without jax run it
@@ -77,6 +78,40 @@ def test_kernel_matches_plain_version(device, S, k, num_lines, window):
     ref = evidence.sample_log_likelihoods_reference(*args, num_lines=num_lines, window=window)
     assert out.shape == (2, S) and out.dtype == torch.float32
     assert normalized_err(out, ref) < BOUND
+
+
+def test_golden_fixture_on_the_card_float64(device):
+    """tests/fixtures/golden_evidences.npz (tests/test_golden.py's problem,
+    rebuilt from its seed) through the port's float64 plain path on the
+    card, at the fixture's 1e-9 relative, as tests/test_torch_inference.py
+    holds it on the CPU."""
+    from pathlib import Path
+
+    from gp_dla_detection_tpu_torch.inference import batch_log_likelihoods
+    from gp_dla_detection_tpu_torch.params import NullModelParams, Parameters
+
+    rng = np.random.default_rng(20160446)
+    params = Parameters(null_model=NullModelParams(k=6))
+    grid = params.null_model.rest_wavelengths()
+    model = (grid, 1.0 + 0.2 * np.sin(grid / 35.0), rng.normal(size=(grid.size, 6)) * 0.07,
+             np.log(0.15 + 0.05 * np.cos(grid / 55.0)))
+    B, P, S = 3, 700, 64
+    z = np.array([2.71, 3.05, 3.42])
+    lam = np.stack([10 ** (np.log10(911.8 * (1 + zz)) + 1e-4 * np.arange(P)) for zz in z])
+    mask = rng.uniform(size=(B, P)) > 0.04
+    spectrum = (lam, rng.normal(1.0, 0.25, (B, P)), rng.uniform(0.05, 0.2, (B, P)), mask, z)
+    samples = (rng.uniform(size=S), 10 ** rng.uniform(20.0, 22.3, S))
+    t = lambda a: torch.as_tensor(a, device=device) if a.dtype == bool else \
+        torch.as_tensor(a, dtype=torch.float64, device=device)
+    out = batch_log_likelihoods(
+        *map(t, spectrum), *map(t, model), np.log(0.1), np.log(0.0023), np.log(3.65),
+        *map(t, samples), params=params, sample_chunk=16, backend="torch",
+    )
+    assert out["sample_log_likelihoods_dla"].device.type == "cuda"
+    with np.load(Path(__file__).parent / "fixtures" / "golden_evidences.npz") as f:
+        for key, rtol in (("log_likelihood_no_dla", 1e-9), ("sample_log_likelihoods_dla", 1e-9),
+                          ("min_z_dla", 1e-12), ("max_z_dla", 1e-12)):
+            np.testing.assert_allclose(out[key].cpu().numpy(), f[key], rtol=rtol, err_msg=key)
 
 
 def test_kernel_masked_nonfinite_inputs(device):

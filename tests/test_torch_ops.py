@@ -10,18 +10,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from scipy.special import wofz
+from scipy.special import voigt_profile, wofz
 
 from gp_dla_detection_tpu.ops import faddeeva as jf
 from gp_dla_detection_tpu.ops import interp as ji
 from gp_dla_detection_tpu.ops import low_rank_mvn as jl
 from gp_dla_detection_tpu.ops import voigt as jv
 from gp_dla_detection_tpu.params import InstrumentParams
+from gp_dla_detection_tpu_torch import ops as pops
 from gp_dla_detection_tpu_torch.ops import faddeeva as pf
 from gp_dla_detection_tpu_torch.ops import interp as pi
 from gp_dla_detection_tpu_torch.ops import low_rank_mvn as pl
 from gp_dla_detection_tpu_torch.ops import lyman_series as lines
 from gp_dla_detection_tpu_torch.ops import voigt as pv
+from gp_dla_detection_tpu_torch.params import NullModelParams
 
 # one intra-op thread: the suite runs several pytest workers at once, and
 # PyTorch's thread pool oversubscribes the cores against them
@@ -57,6 +59,54 @@ def test_wofz_real_fast_matches_jax_and_scipy(y):
     o32 = pf.wofz_real_fast(torch.as_tensor(x32), torch.as_tensor(y32))
     assert o32.dtype == torch.float32
     assert rel_err(o32.numpy(), np.asarray(jf.wofz_real_fast(x32, y32))) < 1e-5
+
+
+@pytest.mark.parametrize("line", [0, 1, 2])
+def test_voigt_function_matches_jax_and_scipy(line):
+    """tests/test_faddeeva.py's inputs: the normalized profile at the
+    first three Lyman lines' widths, JAX's to 1e-12 and scipy's
+    voigt_profile to that file's 5e-8."""
+    v = np.concatenate([np.linspace(0, 1e7, 2001), 10 ** np.linspace(7, 10, 501)])
+    sigma, gamma = lines.DOPPLER_SIGMA, lines.LORENTZIAN_WIDTHS[line]
+    ours = pf.voigt_function(torch.as_tensor(v), sigma, gamma)
+    assert ours.dtype == torch.float64 and pops.voigt_function is pf.voigt_function
+    assert rel_err(ours.numpy(), np.asarray(jf.voigt_function(v, sigma, gamma))) < 1e-12
+    assert rel_err(ours.numpy(), voigt_profile(v, sigma, gamma)) < 5e-8
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_interpolators_match_jax_on_model_grid(dtype):
+    """tests/test_interp.py's inputs (the model's rest grid; random
+    queries, knots, one ulp either side, the ends, outside the grid):
+    each interpolator bit-equal to JAX's, the uniform bracketing to the
+    binary search, and a batch axis to its rows."""
+    grid = NullModelParams().rest_wavelengths().astype(dtype)
+    rng = np.random.default_rng(0)
+    fp = rng.normal(size=grid.size).astype(dtype)
+    cols = rng.normal(size=(grid.size, 5)).astype(dtype)
+    x = np.concatenate([
+        rng.uniform(grid[0] - 2, grid[-1] + 2, 4000), grid[::17],
+        np.nextafter(grid[::31], np.inf), np.nextafter(grid[::31], -np.inf), grid[[0, -1]],
+    ]).astype(dtype)
+    t = torch.as_tensor
+    for name, f in (("interp1", fp), ("interp1_uniform", fp), ("interp_columns", cols),
+                    ("interp_columns_uniform", cols)):
+        ours = getattr(pi, name)(t(grid), t(f), t(x)).numpy()
+        np.testing.assert_array_equal(ours, np.asarray(getattr(ji, name)(grid, f, x)), err_msg=name)
+        batched = getattr(pi, name)(t(grid), t(f), t(np.stack([x, x[::-1]]))).numpy()
+        np.testing.assert_array_equal(batched[1], ours[::-1], err_msg=name)
+    np.testing.assert_array_equal(pi.interp1(t(grid), t(fp), t(x)).numpy(),
+                                  pi.interp1_uniform(t(grid), t(fp), t(x)).numpy())
+
+
+def test_interp1_on_a_nonuniform_grid_matches_jax_and_numpy():
+    rng = np.random.default_rng(1)
+    xp = np.sort(rng.uniform(0, 10, 50))
+    fp = rng.normal(size=50)
+    x = rng.uniform(xp[0], xp[-1], 500)
+    ours = pi.interp1(torch.as_tensor(xp), torch.as_tensor(fp), torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(ours, np.asarray(ji.interp1(xp, fp, x)))
+    np.testing.assert_allclose(ours, np.interp(x, xp, fp), rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

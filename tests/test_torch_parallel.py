@@ -11,7 +11,10 @@ tests/synthetic_problem.py's inputs:
   ``process_spectra_sharded`` on the 8-device CPU mesh at 1e-9;
 - the fused lean chain with CDDF inputs on 2 ranks: bit-equal to the
   one-process run, and JAX's fused driver at 1e-9 with MAP indices equal;
-  the classic flow likewise; the chain refuses a sample axis;
+  the classic flow likewise; on a data 1 x sample 2 mesh the chain
+  (R = 1 and R = 4) bit-equal to the one-process run, JAX's sample-mesh
+  run at 1e-9 with indices equal, and resuming the data mesh's
+  checkpoints; under "cuda" the chain refuses a sample axis;
 - every rank holds the same catalogue, only rank 0 wrote checkpoints and
   manifests, and a one-rank mesh resumes every batch of them;
 - ``learn_gp_model`` on 2 ranks (host and device L-BFGS) against the
@@ -132,12 +135,18 @@ def runs(tmp_path_factory, problem):
     multi = lambda **kw: process_spectra_multi_sharded(
         model, offsets, nhis, spectra, prior_z, worker.prior_num(), params=params, config=cfg(**kw)
     )
+    lean = dict(store_sample_likelihoods=False, store_cddf_inputs=True)
     one = {
         "single_full": worker.single_fields(single()),
         "single_lean": worker.single_fields(single(store_sample_likelihoods=False)),
-        "fused": worker.multi_fields(multi(store_sample_likelihoods=False, store_cddf_inputs=True)),
+        "fused": worker.multi_fields(multi(**lean)),
         "classic": worker.multi_fields(multi()),
     }
+    with pytest.warns(UserWarning, match="base_replicates=4"):
+        one["fused_r4"] = worker.multi_fields(process_spectra_multi_sharded(
+            model, *worker.samples_320(), spectra, prior_z, worker.prior_num(), params=params,
+            config=cfg(base_replicates=4, **lean),
+        ))
     join(*procs)
 
     def load(name, rank=0):
@@ -242,11 +251,10 @@ def test_single_driver_matches_jax_mesh(ranks, mode, sample_parallelism):
         np.testing.assert_array_equal(ours["map_sample_inds"], ref.map_sample_inds)
 
 
-def test_fused_chain_matches_one_process_and_jax(ranks, one):
-    ours = ranks("fused")
-    assert_bit_equal(ours, one["fused"])
-    assert_bit_equal(ranks("fused", 1), ours)
-    ref = jax_run(lean=True, multi=True, store_cddf_inputs=True)
+def assert_chain_matches_jax(ours: dict, ref):
+    """The fused chain against JAX's at 1e-9: the MAP, MAP-pair and
+    MAP-base indices equal, and in ``cddf_ex`` the exact entries' sample
+    indices and the counters equal, their probabilities at 1e-9."""
     for k in ("log_likelihoods_dla2", "model_posteriors", "log_likelihoods_dla"):
         a, b = ours[k], getattr(ref, k) if hasattr(ref, k) else getattr(ref.single, k)
         np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
@@ -255,6 +263,56 @@ def test_fused_chain_matches_one_process_and_jax(ranks, one):
         np.testing.assert_array_equal(ours[k], getattr(ref, k), err_msg=k)
     np.testing.assert_array_equal(ours["map_sample_inds"], ref.single.map_sample_inds)
     np.testing.assert_allclose(ours["cddf_hist"], ref.cddf_inputs.hist, rtol=1e-9, atol=1e-300)
+    K = ref.cddf_inputs.spec.top_k
+    ex, ref_ex = ours["cddf_ex"], ref.cddf_inputs.ex
+    for blk in (1, 3, 4):   # ex1_idx, ex2_pair_idx, ex2_base_idx
+        np.testing.assert_array_equal(ex[:, blk * K : (blk + 1) * K], ref_ex[:, blk * K : (blk + 1) * K])
+    np.testing.assert_array_equal(ex[:, 5 * K :], ref_ex[:, 5 * K :])
+    for blk in (0, 2):      # ex1_p, ex2_p
+        np.testing.assert_allclose(ex[:, blk * K : (blk + 1) * K], ref_ex[:, blk * K : (blk + 1) * K],
+                                   rtol=1e-9, atol=1e-300)
+
+
+def test_fused_chain_matches_one_process_and_jax(ranks, one):
+    ours = ranks("fused")
+    assert_bit_equal(ours, one["fused"])
+    assert_bit_equal(ranks("fused", 1), ours)
+    assert_chain_matches_jax(ours, jax_run(lean=True, multi=True, store_cddf_inputs=True))
+
+
+@pytest.fixture(scope="module")
+def jax_fused_sample():
+    """JAX's fused chain with CDDF inputs on the 8-device CPU mesh with a
+    sample axis of 2 (its XLA path shards the whole chain)."""
+    return jax_run(lean=True, multi=True, sample_parallelism=2, store_cddf_inputs=True)
+
+
+def test_fused_chain_on_sample_axis_matches_one_process_and_jax(ranks, one, jax_fused_sample):
+    """Data 1 x sample 2: each rank evaluates half the columns of the
+    one-device layout in both stages; the gathered rows give the
+    one-process chain bit for bit, every index and tie order included."""
+    ours = ranks("fused_sample")
+    assert_bit_equal(ours, one["fused"])
+    assert_bit_equal(ranks("fused_sample", 1), ours)
+    assert_chain_matches_jax(ours, jax_fused_sample)
+
+
+def test_fused_chain_on_sample_axis_at_r4(ranks, one):
+    """R = 4 on 320 samples on the sample axis: the draw pattern is laid
+    out once on the whole axis (a 256-column tile of 64 distinct draws),
+    so the 160-column blocks, whose boundary cuts a tile, redraw the
+    one-process pairs."""
+    assert multi_dla.replicate_draw_pattern(320, sharded_multi.PATTERN_TILE, 4)[1] < 320
+    ours = ranks("fused_sample_r4")
+    assert_bit_equal(ours, one["fused_r4"])
+    assert_bit_equal(ranks("fused_sample_r4", 1), ours)
+
+
+def test_fused_chain_on_sample_axis_resumes_data_axis_checkpoints(ranks):
+    """The sample mesh at the data mesh's super-batch resumes its
+    checkpoints (test_only_the_coordinator_writes: nothing more written)."""
+    for r in (0, 1):
+        assert_bit_equal(ranks("fused_sample_resumed", r), ranks("fused"))
 
 
 def test_classic_flow_matches_one_process_and_jax(ranks, one):
@@ -284,13 +342,15 @@ def test_only_the_coordinator_writes(ranks):
 
 
 def test_sample_axis_is_refused_by_the_chain(ranks, problem):
+    """Under "cuda" only (the kernels run data-parallel), before anything
+    reaches the card: a CPU run names the CUDA device and is refused."""
     for r in (0, 1):
         assert "data-only mesh" in str(ranks("writes", r)["refused"])
     params, model, spectra, offsets, nhis, prior_z, _ = problem
     mesh = Mesh(world=2, rank=0, local_rank=0, n_data=1, n_sample=2, groups={}, backend="gloo")
-    with pytest.raises(ValueError, match="data-only mesh"):
+    with pytest.raises(ValueError, match="CUDA kernels data-parallel only.*data-only mesh"):
         process_spectra_multi_lean(model, offsets, nhis, spectra, prior_z, worker.prior_num(),
-                                   params=params, device="cpu", dtype=torch.float64, mesh=mesh)
+                                   params=params, device="cuda", mesh=mesh)
 
 
 def test_one_rank_mesh_resumes_every_batch(ranks, problem, monkeypatch):

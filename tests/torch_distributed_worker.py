@@ -11,9 +11,10 @@ Usage: python torch_distributed_worker.py <rank> <world> <addr> <out_dir> <mode>
 mode "drivers": the single-DLA driver (full and lean) on a data mesh
   and on a data 1 x sample 2 mesh, the fused lean chain with CDDF
   inputs and the classic flow on the data mesh (with checkpoints and a
-  count of each rank's checkpoint writes), the chain's refusal of the
-  sample mesh, and the training on the data mesh (host and device
-  L-BFGS);
+  count of each rank's checkpoint writes), the fused chain on the sample
+  mesh (R = 1, R = 4, and resuming the data mesh's checkpoints), its
+  refusal of the sample mesh under ``"cuda"``, and the training on the
+  data mesh (host and device L-BFGS);
 mode "cli": ``python -m gp_dla_detection_tpu_torch.pipeline`` as under
   torchrun (WORLD_SIZE, RANK), on the synthetic release at
   ``base_directory``, with the test-sized parameters.
@@ -22,6 +23,7 @@ mode "cli": ``python -m gp_dla_detection_tpu_torch.pipeline`` as under
 import dataclasses
 import os
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -65,6 +67,13 @@ def port_problem():
 
 def prior_num():
     return np.random.default_rng(7).choice([0, 0, 0, 0, 0, 1, 1, 2], 200)
+
+
+def samples_320():
+    """320 samples, wider than the 256-column tile R > 1 lays its draws on
+    (tests/test_torch_cddf.py's set): (offsets, nhis)."""
+    rng = np.random.default_rng(17)
+    return rng.uniform(size=320), 10 ** rng.uniform(20, 22, 320)
 
 
 def training_problem(N=41, R=32, k=2, seed=5):
@@ -151,7 +160,10 @@ def run_drivers(rank: int, out_dir: Path) -> None:
         ShardedRunConfig,
         process_spectra_sharded,
     )
-    from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi_sharded
+    from gp_dla_detection_tpu_torch.parallel.sharded_multi import (
+        process_spectra_multi_lean,
+        process_spectra_multi_sharded,
+    )
 
     # count this rank's checkpoint writes (only the coordinator writes)
     writes = {"npz": 0, "json": 0}
@@ -198,8 +210,25 @@ def run_drivers(rank: int, out_dir: Path) -> None:
         checkpoint_dir=str(out_dir / "ckpt_fused"),
     )))
     save("classic", multi_fields(multi(data_mesh, checkpoint_dir=str(out_dir / "ckpt_classic"))))
+    # the fused chain on the sample axis, at R = 1, at R = 4 on 320
+    # samples, and resuming the data mesh's checkpoints at its
+    # super-batch (it writes none)
+    lean = dict(store_sample_likelihoods=False, store_cddf_inputs=True)
+    save("fused_sample", multi_fields(multi(sample_mesh, **lean)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # R > 1 under "torch"
+        save("fused_sample_r4", multi_fields(process_spectra_multi_sharded(
+            model, *samples_320(), spectra, prior_z, prior_num(), params=params,
+            mesh=sample_mesh, config=config(base_replicates=4, **lean),
+        )))
+    save("fused_sample_resumed", multi_fields(process_spectra_multi_sharded(
+        model, offsets, nhis, spectra, prior_z, prior_num(), params=params, mesh=sample_mesh,
+        config=dataclasses.replace(config(**lean), per_device_batch=2 * PER_RANK_BATCH,
+                                   checkpoint_dir=str(out_dir / "ckpt_fused")),
+    )))
     try:
-        multi(sample_mesh, store_sample_likelihoods=False)
+        process_spectra_multi_lean(model, offsets, nhis, spectra, prior_z, prior_num(),
+                                   params=params, device="cuda", mesh=sample_mesh)
         refused = ""
     except ValueError as exc:
         refused = str(exc)
