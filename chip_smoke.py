@@ -13,8 +13,8 @@ Phases, each reported on its own line; any failure exits non-zero:
 3. hold the kernel's single-absorber configuration against its plain
    PyTorch version on the card at the production shapes (P = 1274 px,
    k = 20, S = 10,000 samples, 3 lines, windowed and full grid, plus a
-   31-line case) to 5e-5 normalized error, and against the float64 plain
-   path; time both versions at the main path's batch shape, beside the
+   31-line case, and the scale demo's batch of 256) to 5e-5 normalized
+   error, and against the float64 plain path; time both versions at the main path's batch shape, beside the
    least time the card could take (``evidence_bound``) and one FP32
    ``torch.bmm`` of the contraction alone as its yardstick, and the
    kernel at 31 lines on the full grid;
@@ -27,8 +27,8 @@ Phases, each reported on its own line; any failure exits non-zero:
 5. hold the kernel's two-DLA pair configuration against its plain
    version in the same way: the fresh axis z-sorted (windowed and full
    grid), the base axis per-spectrum posterior-like draws in the R = 4
-   layout of the 256-column tile, 3 and 31 lines; the kernel at R = 4
-   bit-identical to R = 1 on that layout; time both at B = 128 (R = 4
+   layout of the 256-column tile, 3 and 31 lines, and a batch of 256;
+   the kernel at R = 4 bit-identical to R = 1 on that layout; time both at B = 128 (R = 4
    and R = 1, and R = 4 at 31 lines on the full grid) beside the bound;
 6. run the fused lean two-stage {0,1,2}-DLA chain
    ``parallel.sharded_multi.process_spectra_multi_lean``, with no
@@ -51,14 +51,18 @@ Phases, each reported on its own line; any failure exits non-zero:
    pair launch per batch in the multi stage, finite statistics, posteriors
    that sum to 1; on 32 release spectra the float32 CUDA CDDF reduction
    against the float64 plain one (mass channel = p_DLA to 1e-5, the same
-   exact entries away from knife edges; the second-DLA entries that miss
-   float64 on a knife edge counted for the float32 kernel and the float32
-   plain path alike); the lean R = 1 statistics
+   exact entries away from knife edges); the lean R = 1 statistics
    against the classic full-matrix run's within the R = 1 bounds of
    validation/RESULTS_LEAN_CDDF.md; the R = 4 statistics' distance from
    classic beside the scatter of the base redraw (R = 1 and R = 4 at
    other base seeds); the device reductions of the R = 1 and R = 4 runs
-   redone by the float64 host reducer from their recorded inputs;
+   redone by the float64 host reducer from their recorded inputs; on the
+   32 release spectra whose pair evidence moves most between R = 1 and
+   R = 4 (broad first-DLA posteriors), the second-DLA exact entries that
+   the float32 kernel and the float32 plain path miss against float64,
+   each away from p_switch's knife edge in a row where float32 drew
+   another base sample for some pair column (the inverse-CDF draw's
+   knife edge);
 8. the drivers across ranks (``torch.multiprocessing``, one free port,
    each rank's output in a file, a timeout on the wait): two gloo ranks
    sharing the card (NCCL refuses two ranks on one GPU), then one NCCL
@@ -85,7 +89,12 @@ Phases, each reported on its own line; any failure exits non-zero:
    10,000 samples through ``process_spectra_multi_sharded``'s classic
    two-stage flow with per-batch checkpoints, float32, the kernels; its
    JSON lines, the single and pair launches per batch from the counters,
-   finite posteriors that sum to 1, exact-multiplicity accuracy >= 0.95;
+   each launch's device time (CUDA events) and the kernels' share of the
+   wall, finite posteriors that sum to 1, exact-multiplicity accuracy >=
+   0.95; then the demo's first batch of 256 through both wrappers: each
+   half launched alone gives the same rows bit for bit, the kernel as
+   close to float64 as its plain float32 version; the decision gate on
+   p_DLA and on the 3-class posteriors against the plain driver path;
 10. print a JSON line describing both kernel configurations (times, bound,
    yardstick, launches, errors, the card) and, last, a JSON line with the
    device.
@@ -130,7 +139,10 @@ RANK_TIMEOUT = 600            # phase 8: seconds the ranks of one spawn may take
 SAMPLE_CHAIN = 64             # phase 8: spectra of the sample-axis chain (plain path)
 SAMPLE_CHAIN_BATCH = 32
 SCALE_DEMO_ACC = 0.95         # phase 9: exact-multiplicity accuracy floor (the JAX
-                              # script's seed-7 run: 0.987, CLAUDE.md)
+                              # script's recorded seed-7 run: 0.987)
+SCALE_BATCH = 256             # phase 9: the demo's per-device batch on one card
+F32_ACCURACY_RATIO = 1.25     # phase 9: the kernel's distance from float64 over
+                              # its plain float32 version's, at most
 # the previous design's kernel times at the phase-3/5 shapes, for
 # comparison (PERF.md, PR 3's chip runs on NVIDIA H100 80GB HBM3, 700.00 W)
 PR3_MS = {"single": "72.78-72.96", "pair R=4": "91.48-91.58"}
@@ -585,6 +597,22 @@ def replay_reductions(log, inputs, batch: int):
     return hist_err, p_err, bad_idx, bad_counts
 
 
+def recorded_base_draws(log):
+    """The base sample every pair column of one lean run drew, (N, S) in
+    original sample numbering and column order, from the inputs that
+    ``recorded_reductions`` copied."""
+    import numpy as np
+    import torch
+
+    (_, _, _, order), *batches = log
+    base = torch.cat([args[-1] for args in batches]).numpy()
+    if order is not None:
+        out = np.empty_like(base)
+        out[:, np.asarray(order)] = base
+        base = out
+    return base
+
+
 def stat_deviation(a, b) -> float:
     """Max relative deviation of b from a over every array of one
     statistic, each entry against max(|a|, 1e-3 max |a|)
@@ -755,13 +783,13 @@ def release_phase(seed: int, smi: str, chain, device: str = "cuda", backend: str
         training = pipe.training_data(catalog, pipe.run_preload(catalog))
         sub = padded.slice(slice(0, F64_SUBSET))
         reduced = {}
-        for name, dtype, be in (("f32", torch.float32, backend), ("f64", torch.float64, "torch"),
-                                ("f32 torch", torch.float32, "torch")):
-            reduced[name] = sharded_multi.process_spectra_multi_lean(
-                model.to(dtype=dtype), samples.offset_samples, samples.nhi_samples, sub,
-                prior_z, prior_num, params=params, batch_size=F64_SUBSET, sample_chunk=500,
-                dtype=dtype, backend=be, base_replicates=1, store_cddf_inputs=True,
-            )
+        reduce_r1 = lambda spectra, dtype, be: sharded_multi.process_spectra_multi_lean(
+            model.to(dtype=dtype), samples.offset_samples, samples.nhi_samples, spectra,
+            prior_z, prior_num, params=params, batch_size=F64_SUBSET, sample_chunk=500,
+            dtype=dtype, backend=be, base_replicates=1, store_cddf_inputs=True,
+        )
+        for name, dtype, be in (("f32", torch.float32, backend), ("f64", torch.float64, "torch")):
+            reduced[name] = reduce_r1(sub, dtype, be)
         mass_err = {}
         for name, r in reduced.items():
             keep = r.single.p_dlas > 0.05
@@ -775,18 +803,10 @@ def release_phase(seed: int, smi: str, chain, device: str = "cuda", backend: str
             (a.ex2_p, a.ex2_idx * S + a.ex2_base), (b.ex2_p, b.ex2_idx * S + b.ex2_base), p_switch
         )
         n_exact = int((b.ex1_p >= p_switch).sum()), int((b.ex2_p >= p_switch).sum())
-        # knife edges included: the float32 kernel's and the float32 plain
-        # path's (JAX's XLA formulas) second-DLA entries missing float64
-        second = lambda c: (c.ex2_p, c.ex2_idx * S + c.ex2_base)
-        edge = {name: exact_entry_diff(second(reduced[name].cddf_inputs), second(b), p_switch).keys()
-                for name in ("f32", "f32 torch")}
         say(f"phase 7: CDDF reduction f32 cuda vs f64 torch (R=1) on {F64_SUBSET} release spectra: "
             f"mass channel vs p_DLA max rel {mass_err['f32']:.2e} (f32) / {mass_err['f64']:.2e} "
-            f"(f64) / {mass_err['f32 torch']:.2e} (f32 torch); exact entries (f64: {n_exact[0]} "
-            f"first-DLA, {n_exact[1]} second-DLA) differing away from knife edges: {bad1} first, "
-            f"{bad2} second; second-DLA entries differing from f64 with knife edges: f32 cuda "
-            f"{len(edge['f32'])}, f32 torch {len(edge['f32 torch'])}, both "
-            f"{len(edge['f32'] & edge['f32 torch'])}")
+            f"(f64); exact entries (f64: {n_exact[0]} first-DLA, {n_exact[1]} second-DLA) "
+            f"differing away from knife edges: {bad1} first, {bad2} second")
         if not max(mass_err.values()) < MASS_RTOL:
             fail(f"the CDDF mass channel misses p_DLA: {mass_err}")
         if bad1 or bad2:
@@ -877,6 +897,62 @@ def release_phase(seed: int, smi: str, chain, device: str = "cuda", backend: str
                 f"{n_second} second-DLA exact entries, small-p second-DLA mass {small2:.4f}")
             if not (hist_err <= REPLAY_RTOL and p_err <= REPLAY_RTOL) or bad_idx or bad_counts:
                 fail(f"the R={R} device reduction disagrees with the host reducer on its inputs")
+
+        # ---- broad posteriors: the F64_SUBSET spectra whose pair evidence
+        # moves most between the R = 1 and R = 4 runs, at R = 1 through the
+        # float32 kernel, the float32 plain path (the JAX package's XLA
+        # formulas) and the float64 plain path.  A second-DLA exact entry
+        # that a float32 run has and float64 has not, or the reverse, is a
+        # miss.  Away from p_switch's knife edge a miss must come from the
+        # other knife edge, the inverse-CDF draw: a float32 run that draws
+        # a row's bases as float64 does gives its pair posteriors to within
+        # the float32 evidences' error, so every miss lies in a row where
+        # some pair column drew another base sample than in float64 (most
+        # on that very column; else its row's normalization moved)
+        ev2 = [redrawn[R, 0][0].log_likelihoods_dla2.astype(np.float64) for R in (1, 4)]
+        moved = np.nan_to_num(np.abs(ev2[0] - ev2[1]), nan=0.0)
+        pick = np.sort(np.argsort(-moved, kind="stable")[:F64_SUBSET])
+        broad = padded.slice(pick)
+        runs, draws = {}, {}
+        for name, dtype, be in (("f32 cuda", torch.float32, backend),
+                                ("f32 torch", torch.float32, "torch"),
+                                ("f64 torch", torch.float64, "torch")):
+            log = []
+            with recorded_reductions(sharded_multi, log):
+                runs[name] = reduce_r1(broad, dtype, be).cddf_inputs
+            draws[name] = recorded_base_draws(log)
+        # the recorded draws are the runs' own: each entry's base is the
+        # draw of its pair column
+        for name, c in runs.items():
+            live = c.ex2_p > 0
+            rows = np.nonzero(live)[0]
+            if not np.array_equal(draws[name][rows, c.ex2_idx[live].astype(np.int64)],
+                                  c.ex2_base[live].astype(np.int64)):
+                fail(f"phase 7: the recorded base draws of the {name} run are not its entries' bases")
+        second = lambda c: (c.ex2_p, c.ex2_idx * S + c.ex2_base)
+        ref, f32s = runs["f64 torch"], ("f32 cuda", "f32 torch")
+        miss = {name: exact_entry_diff(second(runs[name]), second(ref), p_switch) for name in f32s}
+        away = lambda d: {key for key, p in d.items() if p >= p_switch * (1 + KNIFE_EDGE)}
+        redrew = {name: draws[name] != draws["f64 torch"] for name in f32s}
+        same_draw = {name: sorted((row, key) for row, key in away(miss[name])
+                                  if not redrew[name][row, key // S]) for name in f32s}
+        same_row = {name: sorted((row, key) for row, key in away(miss[name])
+                                 if not redrew[name][row].any()) for name in f32s}
+        say(f"phase 7: the {F64_SUBSET} release spectra whose pair evidence moves most between "
+            f"R=1 and R=4 (|d ev2| {moved[pick].min():.2f}-{moved[pick].max():.2f}), R=1: f64 holds "
+            f"{int((ref.ex2_p >= p_switch).sum())} second-DLA exact entries; missed by f32 cuda "
+            f"{len(miss['f32 cuda'])} ({len(away(miss['f32 cuda']))} away from knife edges), by "
+            f"f32 torch {len(miss['f32 torch'])} ({len(away(miss['f32 torch']))}), by both "
+            f"{len(miss['f32 cuda'].keys() & miss['f32 torch'].keys())}; base draws that differ "
+            f"from f64 of {redrew['f32 cuda'].size}: f32 cuda {int(redrew['f32 cuda'].sum())}, "
+            f"f32 torch {int(redrew['f32 torch'].sum())}, both "
+            f"{int((redrew['f32 cuda'] & redrew['f32 torch']).sum())}, in "
+            f"{int(redrew['f32 cuda'].any(axis=1).sum())} / {int(redrew['f32 torch'].any(axis=1).sum())} "
+            f"of {len(pick)} rows; misses away from knife edges whose own pair column drew the same "
+            f"base: {same_draw}, whose whole row did: {same_row}")
+        if any(same_row.values()):
+            fail(f"float32 second-DLA exact entries miss float64 in rows that drew every base "
+                 f"as float64 does: {same_row}")
     say("phase 7 ok")
     return {
         "launches": launches,
@@ -1317,33 +1393,98 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
     return {"wall": wall, "device_lbfgs_syncs_per_eval": d_syncs / d.fun_evals}
 
 
+@contextlib.contextmanager
+def timed_wrappers(evidence):
+    """Both kernel wrappers, each call bracketed by CUDA events on the
+    current stream (nothing synchronizes): yields {"single": [...],
+    "pair": [...]} of (start, stop) event pairs, to be read after a
+    synchronize.  The wrappers and their counters run unchanged."""
+    import torch
+
+    real = {"single": evidence.sample_log_likelihoods, "pair": evidence.sample_log_likelihoods_pair}
+    spans = {name: [] for name in real}
+
+    def timed(name):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](*a, **kw)
+            stop.record()
+            spans[name].append((start, stop))
+            return out
+        return call
+
+    evidence.sample_log_likelihoods = timed("single")
+    evidence.sample_log_likelihoods_pair = timed("pair")
+    try:
+        yield spans
+    finally:
+        evidence.sample_log_likelihoods = real["single"]
+        evidence.sample_log_likelihoods_pair = real["pair"]
+
+
+def first_rows(results, n: int):
+    """``results`` (InferenceResults) with every per-spectrum array cut
+    to its first ``n`` rows."""
+    import numpy as np
+
+    N = len(results.p_dlas)
+    cut = lambda a: a[:n] if isinstance(a, np.ndarray) and a.shape[:1] == (N,) else a
+    return dataclasses.replace(
+        results, **{f.name: cut(getattr(results, f.name)) for f in dataclasses.fields(results)}
+    )
+
+
 def scale_demo_phase(smi: str) -> dict:
     """Phase 9: ``scripts/torch_scale_demo.py`` at its defaults (1024
     spectra x 10,000 samples, the classic two-stage flow with per-batch
     checkpoints, float32, the kernels): its JSON lines, the launches per
-    batch from the counters, finite posteriors that sum to 1, and the
-    exact-multiplicity accuracy above SCALE_DEMO_ACC."""
+    batch from the counters, each launch's device time (CUDA events around
+    the wrapper calls) and the kernels' share of the wall time, finite
+    posteriors that sum to 1, and the exact-multiplicity accuracy above
+    SCALE_DEMO_ACC.  Then the demo's first batch (SCALE_BATCH spectra, the
+    kernels' batch shape and table workspace) through both wrappers, the
+    pair on the demo's own base draws: each half launched alone gives the
+    same rows bit for bit, and the single kernel is as close to float64
+    as its plain float32 version (F32_ACCURACY_RATIO); the batch through
+    the plain driver path (float32, the pair stage on the demo's
+    single-stage rows so that both draw the same bases) for the decision
+    gate on p_DLA and on the 3-class posteriors."""
     import runpy
 
     import numpy as np
+    import torch
 
+    from gp_dla_detection_tpu_torch.multi_dla import process_spectra_multi
     from gp_dla_detection_tpu_torch.ops import evidence
+    from gp_dla_detection_tpu_torch.parallel import ShardedRunConfig, process_spectra_sharded
 
     demo = runpy.run_path(str(Path(__file__).resolve().parent / "scripts" / "torch_scale_demo.py"))
-    evidence.launch_count = evidence.pair_launch_count = 0
-    out = demo["main"]()
-    launches = (evidence.launch_count, evidence.pair_launch_count)
+    with timed_wrappers(evidence) as spans:
+        evidence.launch_count = evidence.pair_launch_count = 0
+        out = demo["main"]()
+        launches = (evidence.launch_count, evidence.pair_launch_count)
+    torch.cuda.synchronize()
+    call_ms = {name: [a.elapsed_time(b) for a, b in v] for name, v in spans.items()}
+    if (len(call_ms["single"]), len(call_ms["pair"])) != launches:
+        fail(f"phase 9: {launches} launches but wrapper calls {[len(v) for v in call_ms.values()]}")
+    kernel_s = sum(map(sum, call_ms.values())) / 1e3
     res = out["results"]
-    n_batches = -(-out["n_spectra"] // 256)
+    n_batches = -(-out["n_spectra"] // SCALE_BATCH)
     post = res.model_posteriors
     finite = bool(np.isfinite(post).all() and np.isfinite(res.single.p_dlas).all())
     sums = bool(np.allclose(post.sum(axis=1), 1.0, rtol=0, atol=1e-9))
+    ms_text = lambda v: "/".join(f"{x:.2f}" for x in v)
     say(f"phase 9: scale demo, {out['n_spectra']} spectra x {out['num_samples']} samples "
         f"(classic two-stage flow, checkpoints, {out['backend']}, float32): {out['seconds']} s = "
         f"{out['spectra_per_sec_end_to_end']} spectra/s end to end; launches (single, pair) "
-        f"{launches} for {n_batches} batches of 256 = ({launches[0] / n_batches:.2f}, "
-        f"{launches[1] / n_batches:.2f}) per batch; exact multiplicity {out['exact_multiplicity_acc']}, "
-        f"detection {out['detection_rate']}, clean false positives {out['clean_false_positive_rate']}; "
+        f"{launches} for {n_batches} batches of {SCALE_BATCH} = ({launches[0] / n_batches:.2f}, "
+        f"{launches[1] / n_batches:.2f}) per batch; device ms per wrapper call (CUDA events, "
+        f"B={SCALE_BATCH}): single {ms_text(call_ms['single'])}, pair {ms_text(call_ms['pair'])}; "
+        f"the kernels {kernel_s:.3f} s = {kernel_s / out['seconds']:.3f} of the wall, the rest "
+        f"outside them; exact multiplicity {out['exact_multiplicity_acc']}, detection "
+        f"{out['detection_rate']}, clean false positives {out['clean_false_positive_rate']}; "
         f"posteriors finite {finite}, sum to 1 {sums} ({smi})")
     if not finite or not sums:
         fail("phase 9: the scale demo's posteriors are not finite or do not sum to 1")
@@ -1351,8 +1492,107 @@ def scale_demo_phase(smi: str) -> dict:
         fail(f"phase 9: the scale demo launched (single, pair) {launches} kernels")
     if not out["exact_multiplicity_acc"] >= SCALE_DEMO_ACC:
         fail(f"phase 9: exact-multiplicity accuracy {out['exact_multiplicity_acc']} < {SCALE_DEMO_ACC}")
+
+    # ---- the first batch through both wrappers, on the demo's inputs at
+    # its batch shape (the fresh axis z-sorted and windowed as the driver
+    # runs it, the pair's base axis the demo's own draws; these launches
+    # come after the counts were read): each half of the batch launched
+    # alone gives the same rows bit for bit, so nothing depends on B or on
+    # the table workspace.  The demo's noise (sd 0.1) is ~12x below
+    # phase 3's, and its evidences pass through 0, so the normalized bound
+    # of phases 3 and 5 (which hold both kernels at this B on their
+    # workload) is not this workload's measure: here the kernel must be as
+    # close to float64 as its plain float32 version is
+    from gp_dla_detection_tpu_torch.inference import compute_sample_window
+
+    w, n, model = out["workload"], SCALE_BATCH, out["model"]
+    device = model.mu.device
+    params = w["params"]
+    offsets, nhis = w["samples"].offset_samples, w["samples"].nhi_samples
+    order = np.argsort(offsets, kind="stable")
+    P6 = params.pixel_pad + 2 * params.instrument.width
+    window = compute_sample_window(offsets[order], evidence.SAMPLE_TILE, P6)
+    sp = out["spectra"]
+    arrays = dict(
+        wavelengths=sp.wavelengths, flux=sp.flux, noise_variance=sp.noise_variance, mask=sp.mask,
+        z_qso=sp.z_qso, grid=model.rest_wavelengths, mu=model.mu, M=model.M,
+        log_omega=model.log_omega, log_c_0=model.log_c_0, log_tau_0=model.log_tau_0,
+        log_beta=model.log_beta,
+    )
+    kin, _ = kernel_inputs(arrays, params, offsets[order], nhis[order], n, device, torch.float32)
+    # sorted column j is sample order[j]; its base sample b sits at sorted
+    # column argsort(order)[b]
+    cols = torch.as_tensor(np.argsort(order)[res.base_sample_inds[:n][:, order]], device=device)
+    z2, nhi2 = kin[7].gather(1, cols).contiguous(), kin[8].gather(1, cols).contiguous()
+    single_k = lambda a: evidence.sample_log_likelihoods(*a[:9], window=window)
+    pair_k = lambda a: evidence.sample_log_likelihoods_pair(*a, window=window)
+    halves = (slice(0, n // 2), slice(n // 2, n))
+    part = lambda a, rows: [x[rows].contiguous() for x in a]
+    whole1, whole2 = single_k(kin), pair_k([*kin, z2, nhi2])
+    same_halves = all(
+        torch.equal(single_k(part(kin, rows)), whole1[rows])
+        and torch.equal(pair_k(part([*kin, z2, nhi2], rows)), whole2[rows])
+        for rows in halves
+    )
+    plain32 = evidence.sample_log_likelihoods_reference(*kin, window=window)
+    err_kp = normalized_error(whole1, plain32)
+    kin64, _ = kernel_inputs(arrays, params, offsets[order], nhis[order], F64_SUBSET, device,
+                             torch.float64)
+    ref64 = evidence.sample_log_likelihoods_reference(*kin64, window=None, sample_chunk=500)
+    dist64 = {name: normalized_error(out_[:F64_SUBSET], ref64)
+              for name, out_ in (("kernel", whole1), ("plain f32", plain32))}
+    del kin, kin64, z2, nhi2, cols, whole1, whole2, plain32, ref64
+    say(f"phase 9: the demo's first {n} spectra through the wrappers (S={len(offsets)}, "
+        f"window={window}, the pair on its own base draws): both halves launched alone give the "
+        f"B={n} rows bit for bit {same_halves}; single kernel vs plain f32 normalized "
+        f"{err_kp[0]:.3e} (abs {err_kp[1]:.3e}); vs float64 on {F64_SUBSET} spectra, normalized "
+        f"(abs): kernel {dist64['kernel'][0]:.3e} ({dist64['kernel'][1]:.3e}), plain f32 "
+        f"{dist64['plain f32'][0]:.3e} ({dist64['plain f32'][1]:.3e})")
+    if not same_halves:
+        fail(f"phase 9: the kernels at B={n} differ from B={n // 2} launches on the same spectra")
+    if not dist64["kernel"][1] <= F32_ACCURACY_RATIO * dist64["plain f32"][1]:
+        fail("phase 9: the kernel is farther from float64 than its plain float32 version")
+
+    # ---- the decision gate: the same batch through the plain driver path
+    # (float32, no launches), the pair stage on the demo's single-stage
+    # rows so that both draw the same bases
+    spectra = sp.slice(slice(0, n))
+    single = first_rows(res.single, n)
+    t0 = time.perf_counter()
+    plain1 = process_spectra_sharded(
+        model, offsets, nhis, spectra, w["prior_z"], np.asarray(w["prior_num"]) >= 1,
+        params=params,
+        config=ShardedRunConfig(per_device_batch=n, sample_chunk=500, dtype="float32",
+                                backend="torch"),
+    )
+    plain2 = process_spectra_multi(
+        model, offsets, nhis, spectra, w["prior_z"], w["prior_num"], params=params,
+        batch_size=n, sample_chunk=500, dtype=torch.float32, backend="torch", single=single,
+    )
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same_draws = np.array_equal(res.base_sample_inds[:n], plain2.base_sample_inds)
+    nan_same = np.array_equal(np.isnan(res.sample_log_likelihoods_dla2[:n]),
+                              np.isnan(plain2.sample_log_likelihoods_dla2))
+    p_k, p_p = single.p_dlas, plain1.p_dlas
+    hard1 = int((((p_k > 0.9) != (p_p > 0.9)) & (np.abs(p_p - 0.9) > DECISION_MARGIN)).sum())
+    p99_1 = float(np.quantile(np.abs(p_k - p_p), 0.99))
+    post_k, post_p = post[:n], plain2.model_posteriors
+    win = np.argmax(post_p, axis=1)
+    sure = post_p[np.arange(n), win] > 0.9 + DECISION_MARGIN
+    hard3 = int((sure & (np.argmax(post_k, axis=1) != win)).sum())
+    p99_3 = float(np.quantile(np.abs(post_k - post_p).max(axis=1), 0.99))
+    say(f"phase 9: the same {n} spectra through the plain driver path (torch, float32, "
+        f"{plain_s:.1f} s): base draws equal {same_draws}, NaN pairs equal {nan_same}; p_DLA "
+        f"flips outside margin {hard1}, |dp| p99 {p99_1:.3e}; 3-class flips where p > 0.91: "
+        f"{hard3} ({int(sure.sum())} such spectra), |dp| p99 {p99_3:.3e}")
+    if not (nan_same and same_draws):
+        fail("phase 9: the plain pair stage drew other bases or masked other pairs")
+    if hard1 or hard3 or not max(p99_1, p99_3) < DECISION_P99:
+        fail(f"phase 9: the kernels at B={n} fail the decision gate against the plain path")
     say("phase 9 ok")
-    return {"launches": launches, "batches": n_batches,
+    return {"launches": launches, "batches": n_batches, "call_ms": call_ms,
+            "kernel_share": kernel_s / out["seconds"],
             "spectra_per_s": out["spectra_per_sec_end_to_end"], "seconds": out["seconds"]}
 
 
@@ -1471,6 +1711,15 @@ def main() -> None:
                     f"normalized {err64[0]:.3e}, abs {err64[1]:.3e}")
                 if not err64[0] < F64_BOUND:
                     fail(f"kernel disagrees with the float64 path: {err64[0]:.3e} >= {F64_BOUND}")
+    # the scale demo's batch shape (twice the table workspace)
+    kin, _ = kernel_inputs(w, params, offsets, nhis, SCALE_BATCH, device, torch.float32)
+    err256 = normalized_error(evidence.sample_log_likelihoods(*kin, window=window),
+                              evidence.sample_log_likelihoods_reference(*kin, window=window))
+    say(f"phase 3: 3 lines, window={window}, B={SCALE_BATCH}, S={len(offsets)}: kernel vs plain "
+        f"f32 normalized {err256[0]:.3e}, abs {err256[1]:.3e}")
+    if not err256[0] < NORMALIZED_BOUND:
+        fail(f"kernel disagrees with its plain version at B={SCALE_BATCH}: {err256[0]:.3e}")
+    worst = max(worst, err256)
     kin, kparams = kernel_inputs(w, params, offsets, nhis, BATCH, device, torch.float32)
     run_kernel = lambda: evidence.sample_log_likelihoods(*kin, window=window)
     run_plain = lambda: evidence.sample_log_likelihoods_reference(*kin, window=window)
@@ -1607,6 +1856,19 @@ def main() -> None:
                     f"normalized {err64[0]:.3e}, abs {err64[1]:.3e}")
                 if not err64[0] < F64_BOUND:
                     fail(f"pair kernel disagrees with the float64 path: {err64[0]:.3e} >= {F64_BOUND}")
+    # the scale demo's batch shape, on draws of a generator of its own
+    # (phase 6 draws its priors from rng)
+    kin, _ = kernel_inputs(w, params, offsets, nhis, SCALE_BATCH, device, torch.float32)
+    z2, n2 = pair_draws(kin, SCALE_BATCH, np.random.default_rng(args.seed + 5))
+    pair_err256 = normalized_error(
+        evidence.sample_log_likelihoods_pair(*kin, z2, n2, window=window, base_replicates=4),
+        evidence.sample_log_likelihoods_pair_reference(*kin, z2, n2, window=window),
+    )
+    say(f"phase 5: pair, 3 lines, window={window}, B={SCALE_BATCH}, S={S}: kernel (R=4) vs plain "
+        f"f32 normalized {pair_err256[0]:.3e}, abs {pair_err256[1]:.3e}")
+    if not pair_err256[0] < NORMALIZED_BOUND:
+        fail(f"pair kernel disagrees with its plain version at B={SCALE_BATCH}: {pair_err256[0]:.3e}")
+    pair_worst = max(pair_worst, pair_err256)
     kin, kparams = kernel_inputs(w, params, offsets, nhis, BATCH, device, torch.float32)
     z2, n2 = pair_draws(kin, BATCH)
     run_pair = lambda R: evidence.sample_log_likelihoods_pair(
@@ -1787,6 +2049,8 @@ def main() -> None:
             "launches_scale_demo": dl[0],
             "launches_per_batch": {"process": rl["process"][0] / rb, "multi": rl["multi"][0] / rb,
                                    "scale_demo": dl[0] / demo["batches"]},
+            "ms_b256_scale_demo": demo["call_ms"]["single"],
+            "max_normalized_err_b256": err256[0],
             "spectra_per_s": rate,
             "card": smi,
         },
@@ -1813,12 +2077,15 @@ def main() -> None:
             "bound_ms_31_lines_full_grid": pair_bound31[0],
             "launches_per_batch": {"multi": rl["multi"][1] / rb,
                                    "scale_demo": dl[1] / demo["batches"]},
+            "ms_b256_scale_demo": demo["call_ms"]["pair"],
+            "max_normalized_err_b256": pair_err256[0],
             "lean_chain_spectra_per_s": lean_rate,
             "lean_chain_r1_spectra_per_s": len(spectra2) / lean1_s,
             "lean_chain_cddf_off_spectra_per_s": release["cddf_off_spectra_per_s"],
             "lean_chain_cddf_on_spectra_per_s": release["cddf_on_spectra_per_s"],
             "release_stage_seconds": release["stage_seconds"],
             "scale_demo_spectra_per_s": demo["spectra_per_s"],
+            "scale_demo_kernel_share": demo["kernel_share"],
             "card": smi,
         },
     ]}))

@@ -38,9 +38,9 @@ stage, whose argmax and top-k break ties by column position.  The base
 columns are computed once on the whole axis, so every rank redraws the
 one-device pairs.  Blocks of the layout, not z-sorted ones as the single
 driver takes for the kernel's window: on the card a float32 sample's
-plain-path evidence moves in its last bits with its column's position
-(``scripts/torch_sample_layout_probe.py``), and halves of the layout
-give the one-device values.  The kernels run data-parallel only:
+plain-path evidence moves in its last bits when its column moves to
+another position (z-sorted blocks), while halves of the layout give the
+one-device values bit for bit (``tests/test_torch_cuda.py``).  The kernels run data-parallel only:
 ``"cuda"`` refuses a sample axis, as the JAX package's Pallas path does.
 
 :func:`process_spectra_multi_sharded` is the driver the pipeline calls:

@@ -105,7 +105,9 @@ def main(
     device: str | None = None,
 ) -> dict:
     """Run the demo; print (on the coordinator) and return the
-    ``two_stage_model_selection`` line's fields."""
+    ``two_stage_model_selection`` line's fields, with the run's result,
+    the injected DLA counts and its inputs (the model, the spectra and
+    the ``synthetic_survey`` workload)."""
     from gp_dla_detection_tpu_torch.inference import PaddedSpectra
     from gp_dla_detection_tpu_torch.models.qso_model import GPModel
     from gp_dla_detection_tpu_torch.parallel import (
@@ -179,7 +181,8 @@ def main(
         "clean_false_positive_rate": rate(picks[injected == 0] >= 1),
     }
     say(json.dumps(line), flush=True)
-    return {**line, "results": res, "injected": injected}
+    return {**line, "results": res, "injected": injected, "model": model, "spectra": spectra,
+            "workload": w}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """The CUDA evidence kernel on the card, against its plain versions:
 the single-absorber and the two-DLA pair configurations.  Also the
 drivers on a one-rank NCCL mesh (its collectives on the card) against the
-same runs with no process group, the on-device L-BFGS on the card, and
-the golden fixture through the float64 plain path on the card.
+same runs with no process group, the on-device L-BFGS on the card, the
+golden fixture through the float64 plain path on the card, and the
+float32 plain path's independence of where a column's block sits.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); without a card they
 skip.  The file imports no jax, so on a machine without jax run it
@@ -112,6 +113,22 @@ def test_golden_fixture_on_the_card_float64(device):
         for key, rtol in (("log_likelihood_no_dla", 1e-9), ("sample_log_likelihoods_dla", 1e-9),
                           ("min_z_dla", 1e-12), ("max_z_dla", 1e-12)):
             np.testing.assert_allclose(out[key].cpu().numpy(), f[key], rtol=rtol, err_msg=key)
+
+
+@pytest.mark.parametrize("stage", ["single", "pair"])
+def test_plain_path_blocks_of_the_axis_are_bit_equal_to_the_whole(device, stage):
+    """The fused lean chain on a sample axis (``backend="torch"``) splits
+    the one-device column layout into contiguous blocks, one per sample
+    rank, and gathers the rows; it is bit-identical to one process only
+    if a float32 plain-path evidence does not move with its block.  At
+    the chain's production shapes (P = 1274, k = 20, S = 10,000 in chunks
+    of 2,500), the two halves of the axis give the whole axis's values bit
+    for bit, for the single-DLA and the pair evidences."""
+    import torch_distributed_worker as worker
+
+    halves, whole = worker.plain_path_halves(device, stage, 4, 1274, 20, 10_000, 2_500)
+    assert np.isfinite(whole).any()
+    np.testing.assert_array_equal(halves, whole)
 
 
 def test_kernel_masked_nonfinite_inputs(device):

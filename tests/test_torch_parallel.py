@@ -308,6 +308,17 @@ def test_fused_chain_on_sample_axis_at_r4(ranks, one):
     assert_bit_equal(ranks("fused_sample_r4", 1), ours)
 
 
+@pytest.mark.parametrize("stage", ["single", "pair"])
+def test_float32_plain_path_halves_of_the_axis_equal_the_whole(stage):
+    """What the sample-axis chain's bit-identity in float32 rests on: the
+    plain path evaluates the two halves of the column layout, each a whole
+    number of sample chunks, to the whole axis's values bit for bit
+    (tests/test_torch_cuda.py holds it on the card at production shapes)."""
+    halves, whole = worker.plain_path_halves("cpu", stage, 3, 384, 4, 400, 100)
+    assert np.isfinite(whole).any()
+    np.testing.assert_array_equal(halves, whole)
+
+
 def test_fused_chain_on_sample_axis_resumes_data_axis_checkpoints(ranks):
     """The sample mesh at the data mesh's super-batch resumes its
     checkpoints (test_only_the_coordinator_writes: nothing more written)."""

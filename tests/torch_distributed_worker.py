@@ -76,6 +76,45 @@ def samples_320():
     return rng.uniform(size=320), 10 ** rng.uniform(20, 22, 320)
 
 
+def plain_path_halves(device, stage, n, pixels, k, num_samples, chunk):
+    """The float32 plain path's ``stage`` ("single" or "pair") evidences
+    of ``utils.synthetic_workload``'s n spectra on ``device``: (the two
+    halves of the sample axis evaluated apart and joined, the whole axis),
+    both (n, num_samples) numpy arrays.  The pair's base axis is a seeded
+    permutation of the samples per spectrum."""
+    from gp_dla_detection_tpu_torch.inference import batch_log_likelihoods
+    from gp_dla_detection_tpu_torch.multi_dla import batch_dla2_log_likelihoods
+    from gp_dla_detection_tpu_torch.params import kms_to_z
+    from gp_dla_detection_tpu_torch.utils import synthetic_workload
+
+    w = synthetic_workload(n, num_samples, pixels=pixels, k=k, seed=0, dtype=np.float64)
+    f32 = lambda a: torch.as_tensor(np.asarray(a), device=device).to(torch.float32)
+    spectrum = (f32(w["wavelengths"]), f32(w["flux"]), f32(w["noise_variance"]),
+                torch.as_tensor(w["mask"], device=device), f32(w["z_qso"]))
+    model = (f32(w["grid"]), f32(w["mu"]), f32(w["M"]), f32(w["log_omega"]),
+             w["log_c_0"], w["log_tau_0"], w["log_beta"])
+    off, nhi = w["offsets"], w["nhis"]
+    base = np.stack([np.random.default_rng(i).permutation(num_samples) for i in range(n)])
+
+    def run(cols):
+        if stage == "single":
+            out = batch_log_likelihoods(
+                *spectrum, *model, f32(off[cols]), f32(nhi[cols]), params=w["params"],
+                sample_chunk=chunk, backend="torch",
+            )["sample_log_likelihoods_dla"]
+        else:
+            out = batch_dla2_log_likelihoods(
+                *spectrum, *model, f32(off[cols]), f32(nhi[cols]), f32(off[base[:, cols]]),
+                f32(nhi[base[:, cols]]), params=w["params"], min_sep_z=kms_to_z(3000.0),
+                backend="torch", sample_chunk=chunk,
+            )
+        return out.cpu().numpy()
+
+    half = num_samples // 2
+    halves = np.concatenate([run(np.arange(half)), run(np.arange(half, num_samples))], axis=1)
+    return halves, run(np.arange(num_samples))
+
+
 def training_problem(N=41, R=32, k=2, seed=5):
     """tests/test_parallel.py::test_data_parallel_training's data, with
     an odd row count (the padding): (TrainingData fields, params kwargs)."""
