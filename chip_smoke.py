@@ -36,9 +36,18 @@ Phases, each reported on its own line; any failure exits non-zero:
    second DLA in every fourth one: one single and one pair launch per
    batch, the R = 4 pattern on the base redshifts the pair kernel
    receives, finite evidences, posteriors that sum to 1, NaN pair
-   evidence only where a row has no valid pair; then at R = 1, holding a
-   subset against the classic driver on the float64 plain path (no
-   decision flips where the float64 winner's posterior exceeds 0.91,
+   evidence only where a row has no valid pair; the process's first
+   pipelined run under ``torch.profiler``, then the main run at the
+   pipelined loop's defaults (4 batches in flight, uploads on a side
+   thread), then depths 1, 2 and 4 with and without the upload thread in
+   turns, every run bit-identical to it, and one run with every ``issue``
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), and
+   ``torch.profiler`` splits of warm runs at the default and at depth 1
+   (kernels, other device ops, device idle, the host's wait) beside the
+   first run's, with the host ops that the first run paid more for;
+   then at R = 1 (depth 1 and the default in turns),
+   holding a subset against the classic driver on the float64 plain path
+   (no decision flips where the float64 winner's posterior exceeds 0.91,
    pair evidences within rtol 5e-4 / atol 5e-3);
 7. the one-command catalogue release: the lean chain's rate with and
    without the CDDF reduction on phase 6's spectra (same posteriors);
@@ -68,9 +77,13 @@ Phases, each reported on its own line; any failure exits non-zero:
    sharing the card (NCCL refuses two ranks on one GPU), then one NCCL
    rank, run ``process_spectra_sharded`` (full and lean), the fused lean
    chain (R = 4, CDDF inputs) and the classic flow on phase 6's spectra
-   with the defaults (the card, float32, the kernels): every rank holds
-   the whole result, bit-identical to this process's run at the same
-   per-rank batch (the CDDF reduction's float64 atomics within 1e-6), one
+   with the defaults (the card, float32, the kernels, the pipelined
+   loop), with ``GPDLA_DRIVER_TIMING=1`` (each batch's upload, dispatch
+   and fetch seconds, summarized per driver and depth): this process runs
+   each at depth 1 and at the default in turns, bit-identical; every rank
+   holds the whole result, bit-identical to this process's depth-1 run at
+   the same per-rank batch (the CDDF reduction's float64 atomics within
+   1e-6), one
    single (and one pair) launch per rank per super-batch, checkpoints
    written by rank 0 alone and resumed by a one-rank rerun; on a data 1 x
    sample 2 mesh the single driver within 5e-5 normalized and the
@@ -91,7 +104,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    JSON lines, the single and pair launches per batch from the counters,
    each launch's device time (CUDA events) and the kernels' share of the
    wall, finite posteriors that sum to 1, exact-multiplicity accuracy >=
-   0.95; then the demo's first batch of 256 through both wrappers: each
+   0.95; the demo at depth 1 and at its default in turns, bit-identical,
+   and a ``torch.profiler`` split of its wall at the default into the
+   kernels, the other device ops, the device's idle time and the host's
+   wait; then the demo's first batch of 256 through both wrappers: each
    half launched alone gives the same rows bit for bit, the kernel as
    close to float64 as its plain float32 version; the decision gate on
    p_DLA and on the 3-class posteriors against the plain driver path;
@@ -108,7 +124,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -989,9 +1007,10 @@ def digest(arrays: dict) -> dict:
             for k, v in arrays.items()}
 
 
-def rank_runs(mesh, inputs, ckpt_root):
+def rank_runs(mesh, inputs, ckpt_root, serial=False):
     """The phase-8 runs of one rank on ``mesh``, each with the defaults
-    (the card, float32, the kernels): (name, thunk) pairs."""
+    (the card, float32, the kernels, the pipelined loop; the serial loop
+    when ``serial``): (name, thunk) pairs."""
     from gp_dla_detection_tpu_torch.parallel.sharded_inference import (
         ShardedRunConfig,
         process_spectra_sharded,
@@ -1001,7 +1020,8 @@ def rank_runs(mesh, inputs, ckpt_root):
     model, offsets, nhis, spectra, prior_z, prior_num, params = inputs
     config = lambda name, **kw: ShardedRunConfig(
         per_device_batch=RANK_BATCH,
-        checkpoint_dir=None if ckpt_root is None else str(ckpt_root / name), **kw,
+        checkpoint_dir=None if ckpt_root is None else str(ckpt_root / name),
+        **(SERIAL if serial else {}), **kw,
     )
     single = lambda name, **kw: process_spectra_sharded(
         model, offsets, nhis, spectra, prior_z, prior_num >= 1, params=params, mesh=mesh,
@@ -1224,6 +1244,7 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
     model, offsets, nhis, spectra, prior_z, prior_num = inputs
     training, training_params = release["training"], release["training_params"]
     n_super = -(-len(spectra) // (2 * RANK_BATCH))
+    os.environ["GPDLA_DRIVER_TIMING"] = "1"    # here and in the ranks it spawns
     with tempfile.TemporaryDirectory(prefix="gpdla_ranks_") as tmp:
         tmp = Path(tmp)
         inputs_path = tmp / "inputs.npz"
@@ -1237,14 +1258,42 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
         )
 
         # ---- this process, one device, at the per-rank batch, with
-        # checkpoints as the ranks write them
-        ref, ref_seconds = {}, {}
-        for name, run in rank_runs(None, (*inputs, params), tmp / "ckpt_one"):
-            sync()
-            t0 = time.perf_counter()
-            ref[name] = result_arrays(run())
-            sync()
-            ref_seconds[name] = time.perf_counter() - t0
+        # checkpoints as the ranks write them: the serial loop (the
+        # reference) and the default in turns, each batch's stage times
+        # printed (GPDLA_DRIVER_TIMING=1, here and in the ranks)
+        ref, ref_seconds, pipelined_seconds, stages = {}, {}, {}, {}
+        for turn, serial in enumerate((True, False, False, True)):
+            runs = rank_runs(None, (*inputs, params), tmp / f"ckpt_one_{turn}", serial=serial)
+            for name, run in runs:
+                lines = io.StringIO()
+                sync()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(lines):
+                    got = result_arrays(run())
+                sync()
+                seconds = time.perf_counter() - t0
+                key = (name, "serial" if serial else "default")
+                stages.setdefault(key, []).append(stage_means(lines.getvalue()))
+                if name not in ref:
+                    ref[name], ref_seconds[name], pipelined_seconds[name] = got, [], []
+                same, cddf_rel = compare_results(got, ref[name])
+                if not same or not cddf_rel <= REPLAY_RTOL:
+                    fail(f"phase 8: {name} in one process at depth "
+                         f"{1 if serial else 'default'} differs from the serial run")
+                (ref_seconds if serial else pipelined_seconds)[name].append(seconds)
+        secs = lambda v: "/".join(f"{x:.3f}" for x in v)
+        for name in ref:
+            mean = lambda d: ", ".join(
+                f"{k} {sum(m[k] for m in stages[name, d]) / len(stages[name, d]):.4f}"
+                for k in stages[name, d][0] if k != "batches")
+            say(f"phase 8: {name} in one process on {len(spectra)} spectra (batch {RANK_BATCH}), "
+                f"wall s, in turns: depth 1 {secs(ref_seconds[name])}, the default (depth 4, "
+                f"upload thread) {secs(pipelined_seconds[name])}, bit-identical"
+                + (" (the CDDF reduction's atomics within 1e-6)" if name == "chain" else "")
+                + f"; per-batch stage s (GPDLA_DRIVER_TIMING=1, {stages[name, 'serial'][0]['batches']} "
+                f"batch lines a run): depth 1 {mean('serial')}; the default {mean('default')} ({smi})")
+        # the ranks run the default: their one-process yardstick
+        ref_seconds = {k: min(v) for k, v in pipelined_seconds.items()}
         sync()
         t0 = time.perf_counter()
         ref_chain = result_arrays(sample_chain_run(None, (*inputs, params)))
@@ -1253,6 +1302,11 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
 
         wall = {"gloo": run_ranks(2, "gloo", inputs_path, params, training_params, tmp),
                 "nccl": run_ranks(1, "nccl", inputs_path, params, training_params, tmp)}
+        for backend in wall:
+            m = stage_means((tmp / f"{backend}_rank0.log").read_text())
+            say(f"phase 8: {backend} rank 0's per-batch stage s over all its runs "
+                f"({m.pop('batches')} batch lines): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in m.items()) + f" ({smi})")
         meta = lambda backend, name, r: json.loads((tmp / f"{backend}_{name}_p{r}.json").read_text())
         with np.load(tmp / "gloo_sample_full.npz") as f:
             sample_full = {k: f[k] for k in f.files}
@@ -1388,9 +1442,158 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
             fail("phase 8: two-rank training misses the one-rank NLL")
         if not np.isfinite(d.f):
             fail("phase 8: the device L-BFGS did not reach a finite NLL")
+    del os.environ["GPDLA_DRIVER_TIMING"]
     say(f"phase 8 ok: 2 gloo ranks {wall['gloo']:.1f} s, 1 NCCL rank {wall['nccl']:.1f} s "
         "(process start and CUDA set-up included)")
     return {"wall": wall, "device_lbfgs_syncs_per_eval": d_syncs / d.fun_evals}
+
+
+SERIAL = {"pipeline_depth": 1, "dispatch_thread": False}   # the serial loop
+
+
+@contextlib.contextmanager
+def strict_issue(module):
+    """``module``'s drivers with every ``issue`` of the pipelined loop run
+    under ``torch.cuda.set_sync_debug_mode("error")``: a host sync there
+    (a read of a device value, a copy from pageable memory) raises."""
+    import torch
+
+    real = module.run_pipelined_split
+
+    def split(items, upload, issue, complete, **kw):
+        def strict(item, uploaded):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return issue(item, uploaded)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        real(items, upload, strict, complete, **kw)
+
+    module.run_pipelined_split = split
+    try:
+        yield
+    finally:
+        module.run_pipelined_split = real
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    """Every array of two results equal bit for bit (NaNs in place)."""
+    import numpy as np
+
+    return sorted(a) == sorted(b) and all(
+        np.array_equal(a[k], v, equal_nan=v.dtype.kind == "f") for k, v in b.items())
+
+
+def stage_means(text: str) -> dict:
+    """Mean seconds per batch of each stage in ``[driver]`` lines
+    (``GPDLA_DRIVER_TIMING=1``), and the number of batches."""
+    import re
+
+    sums, n = {}, 0
+    for line in text.splitlines():
+        if line.startswith("[driver] batch"):
+            n += 1
+            for what, sec in re.findall(r"(\w+) ([0-9.]+)s", line):
+                sums[what] = sums.get(what, 0.0) + float(sec)
+    return {"batches": n, **{k: v / max(n, 1) for k, v in sums.items()}}
+
+
+def profile_split(fn, window: str = "gpdla_profiled"):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activity): (its
+    result, the split of the wall of ``window`` -- a ``record_function``
+    range that ``fn`` opens, else the whole call -- into the evidence
+    kernels' device time, the other device ops' (the union of every
+    device interval less the kernels'), the device's idle time and the
+    calling thread's wait for the card (CUDA synchronize calls and
+    launches blocked on a full launch queue), with the five device
+    ops and the five host ops of that thread that took most time), or
+    (result, None) when the trace holds no device event.  The profiler's
+    own cost is in the wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("gpdla_profiled"):
+            out = fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = next(e for e in events if e.name == window) if any(
+        e.name == window for e in events) else next(e for e in events if e.name == "gpdla_profiled")
+    t0, t1 = span.time_range.start, span.time_range.end
+    inside = lambda e: t0 <= e.time_range.start <= t1
+
+    def union(spans) -> float:
+        total, end = 0.0, t0
+        for a, b in sorted(spans):
+            a, b = max(a, end), min(b, t1)
+            if b > a:
+                total += b - a
+                end = b
+        return total
+
+    def totals(pairs) -> dict:
+        sums = {}
+        for name, us in pairs:
+            sums[name[:48]] = sums.get(name[:48], 0.0) + us / 1e6
+        return sums
+
+    def top(pairs) -> list:
+        return sorted(totals(pairs).items(), key=lambda kv: -kv[1])[:5]
+
+    # the device timeline also carries the record_function ranges: not work
+    device = [e for e in events if e.device_type == DeviceType.CUDA and inside(e)
+              and not e.name.startswith("gpdla_") and not getattr(e, "is_user_annotation", False)]
+    if not device:
+        return out, None
+    spans = lambda evs: ((e.time_range.start, e.time_range.end) for e in evs)
+    busy = union(spans(device))
+    kernels = union(spans(e for e in device
+                          if "evidence_kernel" in e.name or "table_kernel" in e.name))
+    host = [e for e in events if e.device_type == DeviceType.CPU and e.thread == span.thread
+            and inside(e) and e is not span]
+    # waiting for the card: a synchronize, or a launch blocked on a full
+    # launch queue ("Command Buffer Full")
+    waits = sum(e.time_range.end - e.time_range.start for e in host
+                if "Synchronize" in e.name or e.name == "Command Buffer Full")
+    us = 1e6
+    return out, {
+        "wall": (t1 - t0) / us, "kernels": kernels / us, "other_device": (busy - kernels) / us,
+        "device_idle": (t1 - t0 - busy) / us, "host_waiting": waits / us,
+        "device_events": len(device),
+        "top_device": top((e.name, e.time_range.end - e.time_range.start) for e in device),
+        "top_host": top((e.name, e.self_cpu_time_total) for e in host),
+        # every thread's host ops (the upload thread's pinning among
+        # them), summed by name: what a cold run pays that a warm one
+        # does not
+        "host_ops": totals((e.name, e.self_cpu_time_total) for e in events
+                           if e.device_type == DeviceType.CPU and inside(e) and e is not span),
+    }
+
+
+def cold_cost(cold, warm) -> str:
+    """The host ops (every thread) that took most more time in ``cold``
+    than in ``warm`` (two ``profile_split`` splits), with both times."""
+    extra = sorted(((cold["host_ops"].get(k, 0.0) - warm["host_ops"].get(k, 0.0), k)
+                    for k in cold["host_ops"]), reverse=True)[:6]
+    return ", ".join(f"{k} {cold['host_ops'].get(k, 0.0):.4f} s vs {warm['host_ops'].get(k, 0.0):.4f} s"
+                     for _, k in extra)
+
+
+def split_text(split) -> str:
+    if split is None:
+        return "profiler split not measured (the trace holds no device event)"
+    w = split["wall"]
+    return (f"profiled wall {w:.3f} s = evidence kernels {split['kernels']:.3f} s "
+            f"({split['kernels'] / w:.3f}) + other device ops {split['other_device']:.3f} s "
+            f"({split['other_device'] / w:.3f}) + device idle {split['device_idle']:.3f} s "
+            f"({split['device_idle'] / w:.3f}); the calling thread waited for the card "
+            f"(synchronize, full launch queue) "
+            f"{split['host_waiting']:.3f} s and worked {w - split['host_waiting']:.3f} s "
+            f"({split['device_events']} device events); device ops by time: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in split["top_device"])
+            + "; the calling thread's host ops by self time: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in split["top_host"]))
 
 
 @contextlib.contextmanager
@@ -1471,6 +1674,48 @@ def scale_demo_phase(smi: str) -> dict:
         fail(f"phase 9: {launches} launches but wrapper calls {[len(v) for v in call_ms.values()]}")
     kernel_s = sum(map(sum, call_ms.values())) / 1e3
     res = out["results"]
+
+    # ---- the demo's loop at depth 1 and at its default (depth 4, upload
+    # thread) in turns after the main run, every result bit-identical,
+    # then a profiled run at the default
+    import gp_dla_detection_tpu_torch.parallel as parallel
+
+    default_config = parallel.ShardedRunConfig
+
+    default_driver = parallel.process_spectra_multi_sharded
+
+    def driver(*a, **kw):
+        # the demo's timed call, marked for the profiler
+        with torch.profiler.record_function("gpdla_driver"):
+            res = default_driver(*a, **kw)
+            torch.cuda.synchronize()
+        return res
+
+    def demo_run(serial: bool):
+        parallel.ShardedRunConfig = (
+            (lambda **kw: default_config(**SERIAL, **kw)) if serial else default_config)
+        parallel.process_spectra_multi_sharded = driver
+        try:
+            return demo["main"]()
+        finally:
+            parallel.ShardedRunConfig = default_config
+            parallel.process_spectra_multi_sharded = default_driver
+
+    walls = {"serial": [], "default": [out["seconds"]]}
+    for serial in (True, False, False, True):
+        again = demo_run(serial)
+        if not same_bits(result_arrays(again["results"]), result_arrays(res)):
+            fail(f"phase 9: the scale demo at depth {1 if serial else 'default'} differs from "
+                 "the main run")
+        walls["serial" if serial else "default"].append(again["seconds"])
+    n_demo = out["n_spectra"]
+    rates = lambda v: "/".join(f"{n_demo / t:.1f}" for t in v)
+    say(f"phase 9: the scale demo in turns, spectra/s end to end: depth 1 {rates(walls['serial'])}, "
+        f"the default {rates(walls['default'])}; every run bit-identical to the main run ({smi})")
+    for serial in (False, True):
+        profiled, split = profile_split(lambda: demo_run(serial), window="gpdla_driver")
+        say(f"phase 9: {'depth 1' if serial else 'the default'} under torch.profiler "
+            f"({profiled['seconds']} s timed by the demo): {split_text(split)} ({smi})")
     n_batches = -(-out["n_spectra"] // SCALE_BATCH)
     post = res.model_posteriors
     finite = bool(np.isfinite(post).all() and np.isfinite(res.single.p_dlas).all())
@@ -1925,30 +2170,70 @@ def main() -> None:
         seen["has_valid"].append(torch.isfinite(pair_lls).any(dim=1))
         return reduce_pair(pair_lls, base_inds)
 
-    def lean(R, spy):
+    def lean(R, spy=False, loop=None, strict=False):
         evidence.sample_log_likelihoods_pair = pair_spy if spy else kernel_pair
         sharded_multi.pack_lean_pair = reduce_spy if spy else reduce_pair
         try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            # no device, dtype or backend named: the card, float32, the kernels
-            res = sharded_multi.process_spectra_multi_lean(
-                model, samples.offset_samples, samples.nhi_samples, spectra2, prior_z, prior_num,
-                params=params, batch_size=BATCH, base_replicates=R,
-            )
-            torch.cuda.synchronize()
+            with strict_issue(sharded_multi) if strict else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                # no device, dtype or backend named: the card, float32, the
+                # kernels; the pipelined loop at its defaults unless serial
+                res = sharded_multi.process_spectra_multi_lean(
+                    model, samples.offset_samples, samples.nhi_samples, spectra2, prior_z,
+                    prior_num, params=params, batch_size=BATCH, base_replicates=R,
+                    **(loop or {}),
+                )
+                torch.cuda.synchronize()
             return res, time.perf_counter() - t0
         finally:
             evidence.sample_log_likelihoods_pair = kernel_pair
             sharded_multi.pack_lean_pair = reduce_pair
 
-    # the main path, timed, with nothing observing it
+    loops = {   # (pipeline depth, upload thread): the loop's keywords
+        (1, False): SERIAL, (2, False): {"pipeline_depth": 2, "dispatch_thread": False},
+        (2, True): {"pipeline_depth": 2, "dispatch_thread": True},
+        (4, False): {"pipeline_depth": 4, "dispatch_thread": False}, (4, True): {},
+    }
+
+    def depths(R, first, first_s, grid, rounds):
+        """Runs of each loop in ``grid`` in turns (``rounds`` rounds, the
+        order reversed every other round) after ``first`` (a default
+        run): their wall seconds, each result held bit for bit to
+        ``first``."""
+        seconds = {key: [] for key in grid}
+        seconds[4, True].append(first_s)
+        for r in range(rounds):
+            for key in (grid if r % 2 else grid[::-1]):
+                res, sec = lean(R, loop=loops[key])
+                if not same_bits(result_arrays(res), result_arrays(first)):
+                    fail(f"lean chain (R={R}): the loop at depth {key[0]}, upload thread "
+                         f"{key[1]}, differs from the pipelined main-path run")
+                seconds[key].append(sec)
+        return seconds
+
+    rates = lambda secs: "/".join(f"{len(spectra2) / t:.1f}" for t in secs)
+    loop_name = lambda key: f"depth {key[0]}" + (", upload thread" if key[1] else "")
+    # the process's first pipelined run, profiled: what a cold run pays
+    cold4, cold_split = profile_split(lambda: lean(None)[0])
+    # the main path, timed, with nothing observing it: the defaults, 4
+    # batches in flight and the uploads on a side thread
     evidence.launch_count = 0
     evidence.pair_launch_count = 0
-    lean4, lean_s = lean(None, spy=False)
+    lean4, lean_s = lean(None)
     lean_launches = (evidence.launch_count, evidence.pair_launch_count)
     if lean_launches != (n_batches, n_batches):
         fail(f"lean chain: {lean_launches} (single, pair) launches for {n_batches} batches")
+    if not same_bits(result_arrays(cold4), result_arrays(lean4)):
+        fail("lean chain: the profiled first run differs from the main path's")
+    secs4 = depths(None, lean4, lean_s, list(loops), 3)
+    # every issue under the sync-debug mode "error": no host sync
+    try:
+        strict4, _ = lean(None, strict=True)
+    except RuntimeError as exc:
+        fail(f"lean chain: a host sync in issue: {exc}")
+    if not same_bits(result_arrays(strict4), result_arrays(lean4)):
+        fail("lean chain: the run under the sync-debug mode differs")
     # the same run again, observed: the inputs are the same, so is the output
     spied, _ = lean(None, spy=True)
     if len(seen["pattern_ok"]) != n_batches or not all(seen["pattern_ok"]):
@@ -1965,19 +2250,39 @@ def main() -> None:
         fail("lean chain pair evidence is NaN where a row has valid pairs (or finite where none)")
     picks = np.bincount(np.argmax(lean4.model_posteriors, axis=1), minlength=3)
     lean_rate = len(spectra2) / lean_s
-    say(f"phase 6: process_spectra_multi_lean (defaults: cuda, float32, the kernels, R=4): {len(spectra2)} spectra x "
-        f"{S} samples in {lean_s:.3f} s = {lean_rate:.1f} spectra/s; launches (single, pair) "
+    say(f"phase 6: process_spectra_multi_lean (defaults: cuda, float32, the kernels, R=4, "
+        f"pipeline depth 4, upload thread): {len(spectra2)} spectra x {S} samples in "
+        f"{lean_s:.3f} s = {lean_rate:.1f} spectra/s; launches (single, pair) "
         f"{lean_launches} for {n_batches} batches; launches x phase-5 kernel ms = "
         f"{n_batches * (single_ms_same_call + pair_ms) / 1e3 / lean_s:.2f} of the wall time; "
         f"R=4 layout held on every batch; 3-class picks {picks.tolist()}; rows without a "
         f"valid pair {int((~has_valid).sum())} ({smi})")
+    say(f"phase 6: R=4 in turns after it, spectra/s: "
+        + "; ".join(f"{loop_name(key)} {rates(secs)}" for key, secs in secs4.items())
+        + f" (the first of depth 4 with the upload thread is the main path's); every run "
+        f"bit-identical to the main path's; every issue passed under the sync-debug mode "
+        f"\"error\" ({smi})")
+    warm_split = None
+    for key in ((4, True), (1, False)):
+        _, split6 = profile_split(lambda: lean(None, loop=loops[key])[0])
+        warm_split = warm_split or split6
+        say(f"phase 6: R=4 at {loop_name(key)}, warm, {split_text(split6)}")
+    say(f"phase 6: R=4, the process's first pipelined run (the default), {split_text(cold_split)}")
+    if cold_split and warm_split:
+        say(f"phase 6: host ops (every thread) that took most more time in the first pipelined "
+            f"run than in the warm one: {cold_cost(cold_split, warm_split)}")
 
     evidence.launch_count = 0
     evidence.pair_launch_count = 0
-    lean1, lean1_s = lean(1, spy=False)
+    lean1, lean1_s = lean(1)
+    launches1 = (evidence.launch_count, evidence.pair_launch_count)
+    if launches1 != (n_batches, n_batches):
+        fail(f"lean chain (R=1): {launches1} (single, pair) launches for {n_batches} batches")
+    secs1 = depths(1, lean1, lean1_s, [(1, False), (4, True)], 3)
     say(f"phase 6: R=1: {len(spectra2)} spectra in {lean1_s:.3f} s = "
-        f"{len(spectra2) / lean1_s:.1f} spectra/s; launches "
-        f"{(evidence.launch_count, evidence.pair_launch_count)}")
+        f"{len(spectra2) / lean1_s:.1f} spectra/s; launches {launches1}; in turns, spectra/s: "
+        f"depth 1 {rates(secs1[1, False])}, the default {rates(secs1[4, True])}, all "
+        f"bit-identical ({smi})")
     n64 = F64_SUBSET
     t0 = time.perf_counter()
     classic64 = process_spectra_multi(

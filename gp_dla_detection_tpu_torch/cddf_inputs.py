@@ -347,10 +347,10 @@ def make_cddf_reducer(
         # (in a float64 run this is ev1, bit for bit)
         row_max = torch.amax(sll, dim=1)
         norm = row_max + torch.log(torch.mean(torch.exp(sll - row_max[:, None]), dim=1))
-        logw = sll - norm[:, None] - torch.log(torch.tensor(S, dtype=f64, device=sll.device))
+        logw = sll - norm[:, None] - torch.log(torch.full((), S, dtype=f64, device=sll.device))
         p = nan_to_0(torch.exp(logw) * p_dla[:, None])
 
-        bpz = torch.tensor(spec.z_bins_per_unit, dtype=f64, device=sll.device)
+        bpz = torch.full((), spec.z_bins_per_unit, dtype=f64, device=sll.device)
         zf = min_z[:, None] + (max_z - min_z)[:, None] * c["off"][None, :]
         w0 = torch.floor(min_z * bpz)
         w0 = torch.where(torch.isfinite(w0), w0, zero).to(torch.int64)

@@ -220,7 +220,9 @@ def _prepare_spectrum(
     and the convolution-extended wavelength grid (process_qsos.m:102-177).
     Shared by both backends."""
     dtype, device = flux.dtype, flux.device
-    const = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    # filled on the device: a tensor made from host data would copy it
+    # over and wait for the copy (a host sync on the drivers' issue path)
+    const = lambda v: torch.full((), v, dtype=dtype, device=device)
     wavelengths = wavelengths.to(dtype)
 
     rest = wavelengths / (1.0 + z_qso[:, None])

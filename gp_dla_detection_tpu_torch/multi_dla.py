@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from pathlib import Path
 
 import numpy as np
@@ -228,7 +229,7 @@ def _posterior_cdf(sample_log_likelihoods):
     tensor: NaN counts as -inf, and rows with no finite mass fall back to
     uniform weights (a zero-total CDF would divide to NaN)."""
     sll = sample_log_likelihoods
-    neg_inf = torch.tensor(-math.inf, dtype=sll.dtype, device=sll.device)
+    neg_inf = torch.full((), -math.inf, dtype=sll.dtype, device=sll.device)
     finite = torch.where(torch.isnan(sll), neg_inf, sll)
     rowmax = torch.amax(finite, dim=1, keepdim=True)
     rowmax = torch.where(torch.isfinite(rowmax), rowmax, torch.zeros_like(rowmax))
@@ -283,8 +284,8 @@ def _grid_counts(cdf, s: int):
     and JAX compute.
     """
     dt = cdf.dtype
-    s_f = torch.tensor(s, dtype=dt, device=cdf.device)
-    half = torch.tensor(0.5, dtype=dt, device=cdf.device)
+    s_f = torch.full((), s, dtype=dt, device=cdf.device)
+    half = torch.full((), 0.5, dtype=dt, device=cdf.device)
     m = torch.clamp(torch.floor(cdf * s_f + half).to(torch.int64), 0, s)
     for _ in range(2):  # |rounded - true| <= 1; two steps each way
         u_below = (m.to(dt) - half) / s_f
@@ -309,7 +310,7 @@ def pack_lean_pair(pair_lls, base_inds):
     int64).
     """
     valid = torch.isfinite(pair_lls)
-    neg_inf = torch.tensor(-math.inf, dtype=pair_lls.dtype, device=pair_lls.device)
+    neg_inf = torch.full((), -math.inf, dtype=pair_lls.dtype, device=pair_lls.device)
     zero = torch.zeros((), dtype=pair_lls.dtype, device=pair_lls.device)
     # torch.amax/argmax propagate NaN: mask before reducing
     neg = torch.where(valid, pair_lls, neg_inf)
@@ -357,6 +358,7 @@ def batch_dla2_log_likelihoods(
     sample_window: int | None = None,
     sample_chunk: int = 1000,
     base_replicates: int = 1,
+    check_layout: bool = True,
 ):
     """Two-DLA pair log likelihoods for a batch of spectra, (B, S); NaN
     marks a pair closer than ``min_sep_z`` (in log(1+z)).
@@ -371,8 +373,8 @@ def batch_dla2_log_likelihoods(
     kernel sees.  ``backend`` None: the kernel on CUDA tensors, the plain
     version on CPU tensors.  ``base_replicates`` R (``"cuda"``): the base
     columns repeat with period 256/R in every 256-column tile, so the
-    kernel evaluates each distinct draw once (checked; see
-    ``ops.evidence.check_base_layout``).
+    kernel evaluates each distinct draw once (checked, unless
+    ``check_layout=False``; see ``ops.evidence.sample_log_likelihoods_pair``).
     """
     backend = resolve_backend(backend, flux.device, flux.dtype)
     dtype = flux.dtype
@@ -396,15 +398,15 @@ def batch_dla2_log_likelihoods(
             *args[:8], nhi_b.contiguous(), *args[9:],
             num_lines=params.num_lines, instrument=params.instrument,
             window=sample_window, base_replicates=base_replicates,
+            check_layout=check_layout,
         )
     else:
         lls = evidence.sample_log_likelihoods_pair_reference(
             *args, num_lines=params.num_lines, instrument=params.instrument,
             sample_chunk=sample_chunk,
         )
-    threshold = torch.log1p(torch.tensor(min_sep_z, dtype=torch.float64)).to(
-        dtype=dtype, device=lls.device
-    )
+    # a 0-d CPU tensor: compared as a scalar, never copied to the card
+    threshold = torch.log1p(torch.full((), min_sep_z, dtype=torch.float64)).to(dtype)
     too_close = torch.abs(torch.log1p(z_b) - torch.log1p(z2_b)) < threshold
     return torch.where(too_close, torch.full_like(lls, math.nan), lls)
 
@@ -594,6 +596,8 @@ def process_spectra_multi(
     checkpoint_dir=None,
     progress: bool = False,
     mesh=None,
+    pipeline_depth: int = 1,
+    dispatch_thread: bool = False,
 ) -> MultiDLAResults:
     """Model selection over {no DLA, 1 DLA, 2 DLAs} on one device, or
     with its pair stage split over ``mesh`` (``parallel.mesh.Mesh``).
@@ -618,8 +622,14 @@ def process_spectra_multi(
     base columns travelling with them.  The rows are gathered so that
     every rank holds the whole result; the coordinator checkpoints.
     Without ``single``, the single stage runs on one device.
+
+    ``pipeline_depth``, ``dispatch_thread``: the pair stage's batches in
+    flight and its upload thread, as in the mesh drivers
+    (``parallel.overlap``), which pass their config's; the default is
+    the serial loop.  The results do not depend on them.
     """
     from .parallel.mesh import DATA_AXIS, SAMPLE_AXIS, fetch_global, make_mesh, rank_device
+    from .parallel.overlap import BackgroundWriter, Transfers, check_depth, run_pipelined_split
     from .parallel.sharded_inference import (
         BatchLog,
         checkpoint_batch,
@@ -630,6 +640,7 @@ def process_spectra_multi(
         sample_blocks,
     )
 
+    check_depth(pipeline_depth)
     if mesh is None:
         mesh = make_mesh()
     device, dtype, backend = resolve_run(rank_device(device, mesh), dtype, backend)
@@ -713,44 +724,69 @@ def process_spectra_multi(
     done = resumable_batches(mesh, ckpt_dir, expect, "two-DLA")
 
     log = BatchLog(mesh, n, progress)
+    todo = []
     for bi, start in enumerate(range(0, n, super_batch)):
         stop = min(start + super_batch, n)
-        if bi in done:
-            with np.load(ckpt_dir / f"batch_{bi:06d}.npz") as f:
-                out2[start:stop] = f["sample_log_likelihoods_dla2"]
-            log.done(bi, stop - start)
+        if bi not in done:
+            todo.append((bi, start, stop))
             continue
-        log.start()
+        with np.load(ckpt_dir / f"batch_{bi:06d}.npz") as f:
+            out2[start:stop] = f["sample_log_likelihoods_dla2"]
+        log.done(bi, stop - start)
+
+    transfers = Transfers(device)
+
+    def upload(item):
+        # host slice/pad, the base draws' gather and the copy to the
+        # card: no collectives
+        bi, start, stop = item
+        t0 = time.perf_counter()
         batch = spectra.slice(slice(start, stop)).pad_to(super_batch).slice(rows)
         # per-batch gather: offsets[base] whole would be (N, S) per array
         bidx = base[start:stop]
         bidx = np.concatenate([bidx, np.repeat(bidx[-1:], super_batch - len(bidx), axis=0)])
         bidx = bidx[rows][:, cols]
-        log.mark("slice")
-        lls = batch_dla2_log_likelihoods(
-            on_device(batch.wavelengths),
-            on_device(batch.flux),
-            on_device(batch.noise_variance),
-            torch.as_tensor(np.asarray(batch.mask, bool), device=device),
-            on_device(batch.z_qso),
-            *model_args,
-            on_device(offsets[bidx]),
-            on_device(nhis[bidx]),
-            params=params,
-            min_sep_z=min_sep_z,
-            backend=backend,
-            sample_window=window,
-            sample_chunk=sample_chunk,
+        up = transfers.upload(
+            (batch.wavelengths, dtype), (batch.flux, dtype), (batch.noise_variance, dtype),
+            (batch.mask, torch.bool), (batch.z_qso, dtype), (offsets[bidx], dtype),
+            (nhis[bidx], dtype),
         )
-        lls = fetch_global(lls, mesh, SAMPLE_AXIS, dim=1) if split is not None else fetch_global(lls)
-        log.mark("evaluate")
+        log.stage(bi, "upload", t0)
+        return up
+
+    def issue(item, up):
+        # the pair evaluation, enqueued; on a sample axis the rows'
+        # gather (a collective, so here in program order)
+        bi = item[0]
+        t0 = time.perf_counter()
+        *spec, base_off, base_nhi = transfers.take(up)
+        lls = batch_dla2_log_likelihoods(
+            *spec, *model_args, base_off, base_nhi, params=params, min_sep_z=min_sep_z,
+            backend=backend, sample_window=window, sample_chunk=sample_chunk,
+        )
+        if split is not None:
+            lls = fetch_global(lls, mesh, SAMPLE_AXIS, dim=1)
+        fetched = transfers.to_host(lls)
+        log.stage(bi, "dispatch", t0)
+        return fetched
+
+    def complete(item, fetched):
+        bi, start, stop = item
+        t0 = time.perf_counter()
+        (lls,) = transfers.wait(fetched)
+        lls = lls.numpy() if isinstance(lls, torch.Tensor) else lls
         rows_out = fetch_global(in_sample_order(lls, columns), mesh, DATA_AXIS)[: stop - start]
-        log.mark("gather")
+        log.stage(bi, "fetch", t0)
         out2[start:stop] = rows_out
         checkpoint_batch(
-            mesh, ckpt_dir, bi, done, expect, {"sample_log_likelihoods_dla2": rows_out}
+            writer, mesh, ckpt_dir, bi, done, expect, {"sample_log_likelihoods_dla2": rows_out}
         )
         log.done(bi, stop - start)
+
+    with BackgroundWriter() as writer:
+        run_pipelined_split(
+            todo, upload, issue, complete, depth=pipeline_depth, threaded=dispatch_thread,
+        )
 
     return finalize_multi(
         single, out2, base, spectra.z_qso, prior_z_qsos, prior_num_dlas,

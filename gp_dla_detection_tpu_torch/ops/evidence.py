@@ -347,6 +347,7 @@ def sample_log_likelihoods_pair(
     instrument: InstrumentParams | None = None,
     window: int | None = None,
     base_replicates: int = 1,
+    check_layout: bool = True,
 ):
     """Two-DLA pair log likelihoods, (B, S): sample s is the absorber
     pair (z_dlas, nhi)[:, s] + (z_dlas2, nhi2)[:, s].
@@ -358,11 +359,16 @@ def sample_log_likelihoods_pair(
     on the full grid, in any order.  ``base_replicates`` R: the second
     axis repeats at lanes l and l + 256/R of every full 256-column tile
     (checked, :func:`check_base_layout`), and the kernel evaluates it
-    once per distinct draw; the output does not depend on R.
+    once per distinct draw; the output does not depend on R.  The check
+    reads the device tensors back (a host sync): ``check_layout=False``
+    skips it for a caller that checked, on the host, the pattern its
+    base columns follow (the fused lean chain, once per run).
     """
     if instrument is None:
         instrument = InstrumentParams()
-    check_base_layout(z_dlas2, nhi2, base_replicates)
+    _check_replicates(base_replicates)
+    if check_layout:
+        check_base_layout(z_dlas2, nhi2, base_replicates)
     if not flux.is_cuda:
         return sample_log_likelihoods_pair_reference(
             ext_wavelengths, flux, mu, M, omega2, noise_variance, mask,
@@ -379,14 +385,21 @@ def sample_log_likelihoods_pair(
     return out
 
 
+def _check_replicates(base_replicates: int) -> None:
+    """Raise unless ``base_replicates`` is one the pair kernel takes."""
+    if base_replicates not in BASE_REPLICATES:
+        raise ValueError(
+            f"base_replicates must be one of {BASE_REPLICATES}, got {base_replicates}"
+        )
+
+
 def check_base_layout(z_dlas2, nhi2, base_replicates: int) -> None:
     """Raise unless the second axis (B, S) repeats with period
     PATTERN_TILE / R inside every full PATTERN_TILE-column tile, the
     layout the pair kernel's shared base evaluation relies on
     (``parallel.sharded_multi.lean_base_columns``)."""
     R = base_replicates
-    if R not in BASE_REPLICATES:
-        raise ValueError(f"base_replicates must be one of {BASE_REPLICATES}, got {R}")
+    _check_replicates(R)
     if R == 1:
         return
     full = z_dlas2.shape[-1] // PATTERN_TILE * PATTERN_TILE

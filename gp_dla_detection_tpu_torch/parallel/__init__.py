@@ -1,7 +1,8 @@
 """Parallel execution: the (data, sample) mesh over torch.distributed
 ranks, the drivers over many batches with checkpoints (the single-DLA
 driver, the {0,1,2}-DLA drivers with the fused lean chain and its device
-reductions), checkpoint fingerprints.
+reductions), their pipelined upload / issue / complete loop and
+background checkpoint writes, checkpoint fingerprints.
 
 Counterpart of ``gp_dla_detection_tpu/parallel/``; the XLA-only
 ``shard_map_compat`` and ``NamedSharding`` helpers (``data_sharding``,
@@ -19,6 +20,7 @@ from .mesh import (
     make_mesh,
     shutdown,
 )
+from .overlap import BackgroundWriter, Transfers, run_pipelined, run_pipelined_split
 from .sharded_inference import ShardedRunConfig, process_spectra_sharded, run_fingerprint
 from .sharded_multi import (
     FUSED_LEAN_BASE_REPLICATES,
@@ -43,4 +45,8 @@ __all__ = [
     "process_spectra_multi_lean",
     "run_fingerprint",
     "shutdown",
+    "BackgroundWriter",
+    "Transfers",
+    "run_pipelined",
+    "run_pipelined_split",
 ]

@@ -207,11 +207,14 @@ def fetch_global(x, mesh: Mesh | None = None, axis: str = DATA_AXIS, dim: int = 
     ``axis`` of ``mesh`` and concatenated along ``dim`` in rank order.
     Every rank of the axis passes an ``x`` of the same shape and dtype
     and gets the same result; on an axis with no group this is a copy to
-    the host."""
+    the host, or no copy for a host tensor (the pinned buffers the
+    drivers' results land in) or array."""
     if mesh is None or mesh.groups[axis] is None:
         return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     t = x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
-    t = t.to(mesh.comm_device).contiguous()
+    # a pinned host tensor goes to the card without a wait: the gather
+    # runs after the copy on the same stream
+    t = t.to(mesh.comm_device, non_blocking=t.is_pinned()).contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, t, group=mesh.groups[axis])
     return np.concatenate([p.cpu().numpy() for p in parts], axis=dim)

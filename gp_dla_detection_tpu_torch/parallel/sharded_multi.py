@@ -50,13 +50,21 @@ checkpoints under ``<checkpoint_dir>/single`` and the pair stage's under
 mesh: rows over the data axis, z-sorted blocks of the pair columns over
 the sample axis).
 
-Not ported: ``shard_map``, the degradation ladders and the threaded
-upload overlap.
+Both flows run their batches as upload / issue / complete, as the
+single driver does (``overlap.run_pipelined_split``, ``pipeline_depth``
+batches in flight, the uploads on a side thread, the checkpoints on a
+background writer).  ``issue`` enqueues the whole chain of a batch with
+no host sync on a data-only mesh: the draw pattern of R > 1 is checked
+once on the host, not per launch; the index translations run in
+``complete``.
+
+Not ported: ``shard_map`` and the degradation ladders.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from pathlib import Path
 
@@ -100,6 +108,7 @@ from .sharded_inference import (
     resumable_batches,
     run_fingerprint,
 )
+from .overlap import BackgroundWriter, Transfers, check_depth, run_pipelined_split
 from .streaming import pack_lean
 
 __all__ = [
@@ -173,6 +182,8 @@ def process_spectra_multi_lean(
     progress: bool = False,
     store_cddf_inputs: bool = False,
     mesh: Mesh | None = None,
+    pipeline_depth: int = 4,
+    dispatch_thread: bool = True,
 ) -> MultiDLAResults:
     """Lean (catalog-only) {0,1,2}-DLA selection: both stages per batch
     on each data rank's device (see the module docstring).
@@ -193,7 +204,11 @@ def process_spectra_multi_lean(
     (checkpointed with it); the results then carry ``cddf_inputs``.
     ``mesh``: default ``make_mesh()``; a sample axis under ``"torch"``
     only.  The results and checkpoints do not depend on the mesh.
+    ``pipeline_depth``, ``dispatch_thread``: the batches in flight and
+    the upload thread (``ShardedRunConfig``); the results do not depend
+    on them either.
     """
+    check_depth(pipeline_depth)
     if mesh is None:
         mesh = make_mesh()
     device, dtype, backend = resolve_run(rank_device(device, mesh), dtype, backend)
@@ -255,6 +270,13 @@ def process_spectra_multi_lean(
     # kernel's window needs it); the single stage sorts and un-sorts
     # itself, so its columns stay in original order for the redraw
     cols, grid_size, order = lean_base_columns(offsets, base_seed, R, use_cuda)
+    if use_cuda:
+        # the pair kernel's shared base evaluation needs the base columns
+        # to repeat in the R-layout; they repeat wherever the grid
+        # positions do, so the host pattern is checked here, once, and
+        # the launches skip the device check (a host sync per batch)
+        t = torch.from_numpy(cols[None])
+        evidence.check_base_layout(t, t, R)
 
     on_device = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)
     model_args = (
@@ -334,34 +356,53 @@ def process_spectra_multi_lean(
     done = resumable_batches(mesh, ckpt_dir, expect, "fused two-stage")
 
     def batch_vec(a, start, stop):
-        """This rank's rows of a per-spectrum host vector on the device,
-        padded like the super-batch (the last row repeated)."""
+        """This rank's rows of a per-spectrum host vector, padded like the
+        super-batch (the last row repeated)."""
         v = np.asarray(a[start:stop])
-        return on_device(np.concatenate([v, np.repeat(v[-1:], super_batch - len(v))])[rows])
+        return np.concatenate([v, np.repeat(v[-1:], super_batch - len(v))])[rows]
 
     host_vecs = {k: np.empty(n) for k in VEC_KEYS}
     log = BatchLog(mesh, n, progress)
+    todo = []
     for bi, start in enumerate(range(0, n, super_batch)):
         stop = min(start + super_batch, n)
-        if bi in done:
-            with np.load(ckpt_dir / f"batch_{bi:06d}.npz") as f:
-                for k in VEC_KEYS:
-                    host_vecs[k][start:stop] = f[k]
-                if store_cddf_inputs:
-                    host_hist[start:stop] = f["cddf_hist"]
-                    host_ex[start:stop] = f["cddf_ex"]
-            log.done(bi, stop - start)
+        if bi not in done:
+            todo.append((bi, start, stop))
             continue
-        log.start()
+        with np.load(ckpt_dir / f"batch_{bi:06d}.npz") as f:
+            for k in VEC_KEYS:
+                host_vecs[k][start:stop] = f[k]
+            if store_cddf_inputs:
+                host_hist[start:stop] = f["cddf_hist"]
+                host_ex[start:stop] = f["cddf_ex"]
+        log.done(bi, stop - start)
+
+    transfers = Transfers(device)
+
+    def upload(item):
+        # host slice/pad and the copy to the card: no collectives
+        bi, start, stop = item
+        t0 = time.perf_counter()
         batch = spectra.slice(slice(start, stop)).pad_to(super_batch).slice(rows)
-        log.mark("slice")
-        spec = (
-            on_device(batch.wavelengths),
-            on_device(batch.flux),
-            on_device(batch.noise_variance),
-            torch.as_tensor(np.asarray(batch.mask, bool), device=device),
-            on_device(batch.z_qso),
-        )
+        arrays = [
+            (batch.wavelengths, dtype), (batch.flux, dtype), (batch.noise_variance, dtype),
+            (batch.mask, torch.bool), (batch.z_qso, dtype),
+        ]
+        if store_cddf_inputs:
+            arrays += [(batch_vec(a, start, stop), dtype)
+                       for a in (log_p_no_dla, log_p_dla, log_p0m, log_p1m, log_p2m)]
+        up = transfers.upload(*arrays)
+        log.stage(bi, "upload", t0)
+        return up
+
+    def issue(item, up):
+        # both stages, the redraw and the reductions, enqueued; no host
+        # sync on a data-only mesh.  On a sample axis ("torch") the rows'
+        # gathers are collectives, so here in program order
+        bi = item[0]
+        t0 = time.perf_counter()
+        uploaded = transfers.take(up)
+        spec, priors = uploaded[:5], uploaded[5:]
         out1 = batch_log_likelihoods(
             *spec, *model_args, off_orig, nh_orig, params=params,
             sample_chunk=sample_chunk, backend=backend, sample_window=window,
@@ -376,31 +417,33 @@ def process_spectra_multi_lean(
             *spec, *model_args, off_pair, nh_pair, vals[..., 0], vals[..., 1],
             params=params, min_sep_z=min_sep_z, backend=backend,
             sample_window=window, sample_chunk=sample_chunk,
-            base_replicates=R if use_cuda else 1,
+            base_replicates=R if use_cuda else 1, check_layout=False,
         ))
         ev2, map2, map_base = pack_lean_pair(lls2, base_cols)
-        cddf = {}
+        cddf = ()
         if store_cddf_inputs:
-            hist, ex = cddf_reduce(
+            cddf = cddf_reduce(
                 cddf_consts, sll, ev1, out1["log_likelihood_no_dla"],
-                out1["min_z_dla"], out1["max_z_dla"],
-                *(batch_vec(a, start, stop) for a in (
-                    log_p_no_dla, log_p_dla, log_p0m, log_p1m, log_p2m
-                )),
-                lls2, ev2, base_cols,
+                out1["min_z_dla"], out1["max_z_dla"], *priors, lls2, ev2, base_cols,
             )
-            cddf = {"cddf_hist": hist, "cddf_ex": ex}
         small = (
             out1["log_likelihood_no_dla"], out1["min_z_dla"], out1["max_z_dla"],
             ev1, map1, ev2, map2, map_base,
         )
-        # one device-to-host copy; indices are exact in float64
-        vecs = fetch_global(torch.stack([v.to(torch.float64) for v in small]))
-        log.mark("evaluate")
+        # one copy of the vectors to the host; indices are exact in float64
+        fetched = transfers.to_host(torch.stack([v.to(torch.float64) for v in small]), *cddf)
+        log.stage(bi, "dispatch", t0)
+        return fetched
+
+    def complete(item, fetched):
+        bi, start, stop = item
+        t0 = time.perf_counter()
+        stacked, *cddf = transfers.wait(fetched)
         keep = stop - start
-        vecs = list(fetch_global(vecs, mesh, DATA_AXIS, dim=1)[:, :keep])
-        cddf = {k: fetch_global(v, mesh, DATA_AXIS)[:keep] for k, v in cddf.items()}
-        log.mark("gather")
+        vecs = list(fetch_global(stacked, mesh, DATA_AXIS, dim=1)[:, :keep])
+        cddf = {k: fetch_global(v, mesh, DATA_AXIS)[:keep]
+                for k, v in zip(("cddf_hist", "cddf_ex"), cddf)}
+        log.stage(bi, "fetch", t0)
         # -1 = no finite sample: the catalog's fallback is index 0; the
         # pair MAPs keep -1 as the no-valid-pair flag
         vecs[4] = np.maximum(vecs[4], 0.0)
@@ -413,19 +456,24 @@ def process_spectra_multi_lean(
                 # so are the exact second-DLA pair indices (the base and
                 # first-DLA indices already are original)
                 K = cddf_spec.top_k
-                blk = cddf["cddf_ex"][:, 3 * K : 4 * K]
-                pidx = blk.astype(np.int64)
-                blk[...] = np.where(pidx >= 0, order[np.maximum(pidx, 0)], -1)
+                ex = cddf["cddf_ex"] = np.array(cddf["cddf_ex"])
+                pidx = ex[:, 3 * K : 4 * K].astype(np.int64)
+                ex[:, 3 * K : 4 * K] = np.where(pidx >= 0, order[np.maximum(pidx, 0)], -1)
         for k, v in zip(VEC_KEYS, vecs):
             host_vecs[k][start:stop] = v
         if cddf:
             host_hist[start:stop] = cddf["cddf_hist"]
             host_ex[start:stop] = cddf["cddf_ex"]
         checkpoint_batch(
-            mesh, ckpt_dir, bi, done, {**expect, "base_seed": base_seed},
+            writer, mesh, ckpt_dir, bi, done, {**expect, "base_seed": base_seed},
             {**dict(zip(VEC_KEYS, vecs)), **cddf},
         )
-        log.done(bi, stop - start)
+        log.done(bi, keep)
+
+    with BackgroundWriter() as writer:
+        run_pipelined_split(
+            todo, upload, issue, complete, depth=pipeline_depth, threaded=dispatch_thread,
+        )
 
     post = posteriors_from_evidence(
         log_p_no_dla, log_p_dla,
@@ -515,6 +563,7 @@ def process_spectra_multi_sharded(
             base_seed=base_seed, min_separation_kms=min_separation_kms,
             checkpoint_dir=ckpt_root, progress=progress,
             store_cddf_inputs=config.store_cddf_inputs, mesh=mesh,
+            pipeline_depth=config.pipeline_depth, dispatch_thread=config.dispatch_thread,
         )
     if config.base_replicates not in (None, 1):
         raise ValueError(
@@ -554,5 +603,5 @@ def process_spectra_multi_sharded(
         min_separation_kms=min_separation_kms, base_seed=base_seed, single=single,
         backend=backend,
         checkpoint_dir=ckpt_root / "pair" if ckpt_root else None, progress=progress,
-        mesh=mesh,
+        mesh=mesh, pipeline_depth=config.pipeline_depth, dispatch_thread=config.dispatch_thread,
     )

@@ -26,7 +26,7 @@ def pack_lean(sll):
 
     Returns (evidence (B,), map_index (B,) int64).
     """
-    neg_inf = torch.tensor(-math.inf, dtype=sll.dtype, device=sll.device)
+    neg_inf = torch.full((), -math.inf, dtype=sll.dtype, device=sll.device)
     finite = torch.where(torch.isnan(sll), neg_inf, sll)
     best = torch.amax(finite, dim=1)
     map_ind = torch.where(

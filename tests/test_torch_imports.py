@@ -38,6 +38,7 @@ PORT_MODULES = [
     "gp_dla_detection_tpu_torch.multi_dla",
     "gp_dla_detection_tpu_torch.parallel",
     "gp_dla_detection_tpu_torch.parallel.streaming",
+    "gp_dla_detection_tpu_torch.parallel.overlap",
     "gp_dla_detection_tpu_torch.parallel.sharded_inference",
     "gp_dla_detection_tpu_torch.parallel.sharded_multi",
     "gp_dla_detection_tpu_torch.cddf_inputs",

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gp_dla_detection_tpu import multi_dla as jmd
 from gp_dla_detection_tpu.parallel import ShardedRunConfig, make_mesh
@@ -39,6 +40,7 @@ from gp_dla_detection_tpu_torch.parallel.sharded_multi import (
 from gp_dla_detection_tpu_torch.parallel.streaming import pack_lean
 
 from synthetic_problem import make_problem
+from torch_distributed_worker import samples_320
 
 # one intra-op thread: the suite runs several pytest workers at once, and
 # PyTorch's thread pool oversubscribes the cores against them
@@ -228,7 +230,7 @@ def run_port(problem, prior_num, samples=None, **kw):
         GPModel.from_numpy(**fields, dtype=dtype, device="cpu"), offsets, nhis,
         PaddedSpectra(spectra.wavelengths, spectra.flux, spectra.noise_variance,
                       spectra.mask, spectra.z_qso),
-        prior_z, prior_num, params=params, batch_size=4, sample_chunk=200,
+        prior_z, prior_num, params=params, batch_size=kw.pop("batch_size", 4), sample_chunk=200,
         dtype=dtype, **kw, device="cpu",
     )
 
@@ -365,3 +367,158 @@ def test_lean_cuda_backend_refuses_cpu_and_float64(problem, prior_num):
             run_port(problem, prior_num, dtype=dtype, backend="cuda")
     with pytest.raises(ValueError, match="base_replicates"):
         run_port(problem, prior_num, base_replicates=3)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined loop: upload / issue / complete
+# ---------------------------------------------------------------------------
+
+PIPELINES = [(d, t) for d in (1, 2, 4) for t in (False, True)]
+
+
+def chain_fields(res) -> dict:
+    """Every array of a chain's result, by name."""
+    out = {f"single_{k}": v for k, v in dataclasses.asdict(res.single).items()
+           if isinstance(v, np.ndarray)}
+    out.update({k: getattr(res, k) for k in ("log_likelihoods_dla2", "model_posteriors",
+                                             "map_sample_inds2", "map_base_sample_inds")})
+    if res.cddf_inputs is not None:
+        out["cddf_hist"], out["cddf_ex"] = res.cddf_inputs.hist, res.cddf_inputs.ex
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
+@pytest.mark.parametrize("variant", ["R1", "R4", "cddf"])
+def test_every_pipeline_depth_gives_the_same_bits(problem, prior_num, variant, dtype):
+    """The chain at pipeline depths 1, 2 and 4, with and without the
+    upload thread, in batches of 2 (six batches, so that depth 4 keeps
+    four in flight): bit-identical results, the CDDF inputs included."""
+    kw = dict(dtype=dtype, batch_size=2)
+    if variant == "R4":
+        kw.update(samples=samples_320(), base_replicates=4)
+    if variant == "cddf":
+        kw["store_cddf_inputs"] = True
+    runs = {}
+    for depth, threaded in PIPELINES:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            if variant == "R4":
+                warnings.filterwarnings("ignore", "base_replicates=4", UserWarning)
+            res = run_port(problem, prior_num, pipeline_depth=depth, dispatch_thread=threaded, **kw)
+        runs[depth, threaded] = chain_fields(res)
+    serial = runs[1, False]
+    assert np.isfinite(serial["model_posteriors"]).all()
+    for key, fields in runs.items():
+        assert sorted(fields) == sorted(serial)
+        for name, v in fields.items():
+            np.testing.assert_array_equal(v, serial[name], err_msg=f"{key} {name}")
+
+
+def test_pipeline_depth_below_one_is_refused(problem, prior_num):
+    with pytest.raises(ValueError, match="depth must be >= 1"):
+        run_port(problem, prior_num, pipeline_depth=0)
+
+
+class HostReads(TorchDispatchMode):
+    """Records the operations that, on the card, wait for it or copy
+    host data over and wait for the copy: ``item()``/``bool()``
+    (``_local_scalar_dense``), a tensor made from host data
+    (``lift_fresh``), ``nonzero``, ``masked_select`` and boolean
+    indexing.  Off while ``plain`` is above 0 (the evidences' plain
+    versions stand in for the kernels on the CPU)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen, self.plain = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        reads = name in {"aten._local_scalar_dense.default", "aten.lift_fresh.default",
+                         "aten.nonzero.default", "aten.masked_select.default"} or (
+            name == "aten.index.Tensor"
+            and any(i is not None and i.dtype == torch.bool for i in args[1]))
+        if reads and not self.plain:
+            self.seen.append(name)
+        return func(*args, **(kwargs or {}))
+
+
+def test_chain_issue_reads_nothing_back(problem, prior_num, monkeypatch):
+    """What the card's sync-debug mode holds ``issue`` to (chip_smoke.py
+    phase 6), on the CPU: the chain's issue (prep, both evidences, the
+    redraw, the reductions, the CDDF reducer, the copies to the host)
+    performs no read of a tensor's value and makes no tensor from host
+    data, at R = 4 and with the CDDF inputs."""
+    from gp_dla_detection_tpu_torch.ops import evidence
+    from gp_dla_detection_tpu_torch.parallel import sharded_multi
+
+    reads = HostReads()
+
+    def plain(fn):
+        def call(*a, **kw):
+            reads.plain += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                reads.plain -= 1
+        return call
+
+    for name in ("sample_log_likelihoods_reference", "sample_log_likelihoods_pair_reference"):
+        monkeypatch.setattr(evidence, name, plain(getattr(evidence, name)))
+    real = sharded_multi.run_pipelined_split
+    issued = []
+
+    def watched(items, upload, issue, complete, **kw):
+        def watched_issue(item, uploaded):
+            issued.append(item[0])
+            with reads:
+                return issue(item, uploaded)
+        real(items, upload, watched_issue, complete, **kw)
+
+    monkeypatch.setattr(sharded_multi, "run_pipelined_split", watched)
+    with pytest.warns(UserWarning, match="base_replicates=4"):
+        run_port(problem, prior_num, samples_320(), base_replicates=4, store_cddf_inputs=True)
+    assert issued == [0, 1, 2]
+    assert reads.seen == []
+
+
+def test_pair_layout_check_is_skipped_on_request(monkeypatch):
+    """``check_layout=False`` (the chain, which checks its draw pattern on
+    the host once) reads no value back; the default check does, and
+    refuses a broken layout; R is validated either way."""
+    from gp_dla_detection_tpu_torch.ops import evidence
+
+    rng = np.random.default_rng(5)
+    B, P, S, k = 2, 40, 256, 3
+    ext = torch.as_tensor(np.sort(rng.uniform(3700, 4300, (B, P + 6)), axis=1))
+    pix = lambda: torch.as_tensor(rng.uniform(0.5, 1.5, (B, P)))
+    z2 = torch.as_tensor(np.tile(rng.uniform(2.2, 2.4, (B, 64)), 4))   # the R = 4 layout
+    n2 = 10 ** (18 + z2)
+    args = (ext, pix(), pix(), torch.as_tensor(rng.normal(0, 0.1, (B, P, k))), pix(), pix(),
+            torch.ones((B, P), dtype=torch.bool), torch.as_tensor(rng.uniform(2.2, 2.4, (B, S))),
+            torch.as_tensor(10 ** rng.uniform(20, 21, (B, S))))
+    reads = HostReads()
+    real = evidence.sample_log_likelihoods_pair_reference
+
+    def plain(*a, **kw):
+        reads.plain += 1
+        try:
+            return real(*a, **kw)
+        finally:
+            reads.plain -= 1
+
+    monkeypatch.setattr(evidence, "sample_log_likelihoods_pair_reference", plain)
+    out = {}
+    for check in (True, False):
+        reads.seen = []
+        with reads:
+            out[check] = evidence.sample_log_likelihoods_pair(
+                *args, z2, n2, base_replicates=4, check_layout=check)
+        assert bool(reads.seen) == check, reads.seen
+    assert torch.equal(out[True], out[False])
+    bad = z2.clone()
+    bad[0, 0] += 0.01
+    with pytest.raises(ValueError, match="base_replicates=4"):
+        evidence.sample_log_likelihoods_pair(*args, bad, n2, base_replicates=4)
+    evidence.sample_log_likelihoods_pair(*args, bad, n2, base_replicates=4, check_layout=False)
+    with pytest.raises(ValueError, match="base_replicates must be"):
+        evidence.sample_log_likelihoods_pair(*args, z2, n2, base_replicates=3, check_layout=False)

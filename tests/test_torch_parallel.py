@@ -129,11 +129,14 @@ def runs(tmp_path_factory, problem):
     out = tmp_path_factory.mktemp("ranks")
     procs = spawn(out, "drivers")
     params, model, spectra, offsets, nhis, prior_z, prior_f = problem
+    # the serial loop here; the ranks run at depth 4 with the upload thread
+    serial = dict(pipeline_depth=1, dispatch_thread=False)
     single = lambda **kw: process_spectra_sharded(
-        model, offsets, nhis, spectra, prior_z, prior_f, params=params, config=cfg(**kw)
+        model, offsets, nhis, spectra, prior_z, prior_f, params=params, config=cfg(**serial, **kw)
     )
     multi = lambda **kw: process_spectra_multi_sharded(
-        model, offsets, nhis, spectra, prior_z, worker.prior_num(), params=params, config=cfg(**kw)
+        model, offsets, nhis, spectra, prior_z, worker.prior_num(), params=params,
+        config=cfg(**serial, **kw),
     )
     lean = dict(store_sample_likelihoods=False, store_cddf_inputs=True)
     one = {
@@ -145,7 +148,7 @@ def runs(tmp_path_factory, problem):
     with pytest.warns(UserWarning, match="base_replicates=4"):
         one["fused_r4"] = worker.multi_fields(process_spectra_multi_sharded(
             model, *worker.samples_320(), spectra, prior_z, worker.prior_num(), params=params,
-            config=cfg(base_replicates=4, **lean),
+            config=cfg(base_replicates=4, **serial, **lean),
         ))
     join(*procs)
 
@@ -464,3 +467,123 @@ def test_pipeline_cli_on_two_ranks(synthetic_release, tmp_path, monkeypatch):
     # 8 test spectra in super-batches of 2 x 2, checkpointed once
     manifest = json.loads((two_dir / "multi_ckpt" / "fused" / "manifest.json").read_text())
     assert (manifest["batch_size"], manifest["completed_batches"]) == (4, [0, 1])
+
+
+# ---------------------------------------------------------------------------
+# the pipelined loop: upload / issue / complete
+# ---------------------------------------------------------------------------
+
+PIPELINES = [(d, t) for d in (1, 2, 4) for t in (False, True)]
+
+
+def run_driver(problem, driver: str, **kw):
+    """``driver`` ("single_full", "single_lean", "classic", "fused") on
+    the problem in super-batches of 2 (six batches), one process."""
+    params, model, spectra, offsets, nhis, prior_z, prior_f = problem
+    config = ShardedRunConfig(per_device_batch=2, sample_chunk=32, device="cpu",
+                              backend="torch", **{"dtype": "float64", **kw})
+    if driver.startswith("single"):
+        config.store_sample_likelihoods = driver == "single_full"
+        return worker.single_fields(process_spectra_sharded(
+            model, offsets, nhis, spectra, prior_z, prior_f, params=params, config=config))
+    if driver == "fused":
+        config.store_sample_likelihoods = False
+    return worker.multi_fields(process_spectra_multi_sharded(
+        model, offsets, nhis, spectra, prior_z, worker.prior_num(), params=params, config=config))
+
+
+def test_pipeline_defaults_and_refusal(problem):
+    """The JAX package's defaults: four batches in flight, uploads on a
+    side thread; a depth below 1 is refused before anything runs."""
+    config = ShardedRunConfig()
+    assert (config.pipeline_depth, config.dispatch_thread) == (4, True)
+    assert (config.pipeline_depth, config.dispatch_thread) == (
+        JaxRunConfig().pipeline_depth, JaxRunConfig().dispatch_thread)
+    for driver in ("single_full", "classic", "fused"):
+        with pytest.raises(ValueError, match="depth must be >= 1"):
+            run_driver(problem, driver, pipeline_depth=0)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("driver", ["single_full", "single_lean", "classic"])
+def test_every_pipeline_depth_gives_the_same_bits(problem, driver, dtype):
+    """The single driver (full and lean) and the classic flow (its single
+    stage and its pair stage pipelined) at depths 1, 2 and 4, with and
+    without the upload thread: bit-identical results."""
+    runs = {(d, t): run_driver(problem, driver, dtype=dtype, pipeline_depth=d, dispatch_thread=t)
+            for d, t in PIPELINES}
+    serial = runs[1, False]
+    for key, fields in runs.items():
+        assert_bit_equal(fields, serial)
+
+
+def fail_in_complete(real, batch: int):
+    """``run_pipelined_split`` whose ``complete`` raises at ``batch``."""
+
+    def split(items, upload, issue, complete, **kw):
+        def complete_or_fail(item, state):
+            if item[0] == batch:
+                raise RuntimeError(f"injected failure at batch {batch}")
+            complete(item, state)
+
+        real(items, upload, issue, complete_or_fail, **kw)
+
+    return split
+
+
+STREAMS = {  # driver -> (the module whose loop fails, its checkpoint subdirectory)
+    "single_full": ("sharded_inference", "."),
+    "fused": ("sharded_multi", "fused"),
+    "classic": ("overlap", "pair"),
+}
+
+
+@pytest.mark.parametrize("driver", sorted(STREAMS))
+def test_resume_after_a_failure_mid_pipeline(problem, driver, tmp_path, monkeypatch):
+    """A failure in batch 2's ``complete`` at depth 4 (threaded): the
+    manifest lists only batches whose file landed, none at or past the
+    failure; a rerun computes exactly the batches it does not list and
+    gives the uninterrupted run's results bit for bit."""
+    from gp_dla_detection_tpu_torch.parallel import overlap
+
+    module = {"sharded_inference": sharded_inference, "sharded_multi": sharded_multi,
+              "overlap": overlap}[STREAMS[driver][0]]
+    ckpt = tmp_path / STREAMS[driver][1]
+    uninterrupted = run_driver(problem, driver, pipeline_depth=1)
+    with monkeypatch.context() as m:
+        m.setattr(module, "run_pipelined_split", fail_in_complete(module.run_pipelined_split, 2))
+        with pytest.raises(RuntimeError, match="injected failure at batch 2"):
+            run_driver(problem, driver, checkpoint_dir=str(tmp_path))
+    manifest = ckpt / "manifest.json"
+    listed = json.loads(manifest.read_text())["completed_batches"] if manifest.exists() else []
+    files = sorted(int(f.stem.split("_")[1]) for f in ckpt.glob("batch_*.npz"))
+    assert set(listed) <= set(files) <= {0, 1}
+    assert not list(ckpt.glob("*.tmp"))
+
+    evaluated = []
+    home = {"single_full": sharded_inference, "fused": sharded_multi, "classic": multi_dla}[driver]
+    name = "batch_dla2_log_likelihoods" if driver == "classic" else "batch_log_likelihoods"
+    real = getattr(home, name)
+    monkeypatch.setattr(home, name, lambda *a, **kw: evaluated.append(1) or real(*a, **kw))
+    resumed = run_driver(problem, driver, checkpoint_dir=str(tmp_path))
+    assert len(evaluated) == 6 - len(listed)
+    assert_bit_equal(resumed, uninterrupted)
+
+
+@pytest.mark.parametrize("driver", sorted(STREAMS))
+def test_a_failed_checkpoint_write_raises(problem, driver, tmp_path, monkeypatch):
+    def full_disk(*a, **kw):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(sharded_inference, "atomic_savez", full_disk)
+    with pytest.raises(OSError, match="disk full"):
+        run_driver(problem, driver, checkpoint_dir=str(tmp_path))
+
+
+def test_fetch_global_takes_a_host_tensor_without_copying():
+    """``complete`` hands ``fetch_global`` the host buffer its copy landed
+    in; on an axis with no group the array returned is that buffer."""
+    x = torch.arange(6.0).reshape(2, 3)
+    got = fetch_global(x, make_mesh())
+    assert np.shares_memory(got, x.numpy())
+    np.testing.assert_array_equal(got, x.numpy())

@@ -225,9 +225,10 @@ def run_drivers(rank: int, out_dir: Path) -> None:
     assert (data_mesh.shape, sample_mesh.shape) == (
         {"data": 2, "sample": 1}, {"data": 1, "sample": 2}
     )
+    # the pipelined loop at the JAX package's defaults, stated
     config = lambda **kw: ShardedRunConfig(
         per_device_batch=PER_RANK_BATCH, sample_chunk=32, dtype="float64", device="cpu",
-        backend="torch", **kw,
+        backend="torch", pipeline_depth=4, dispatch_thread=True, **kw,
     )
     save = lambda name, fields: np.savez(out_dir / f"{name}_p{rank}.npz", **fields)
     single = lambda mesh, **kw: process_spectra_sharded(
