@@ -111,9 +111,26 @@ Phases, each reported on its own line; any failure exits non-zero:
    half launched alone gives the same rows bit for bit, the kernel as
    close to float64 as its plain float32 version; the decision gate on
    p_DLA and on the 3-class posteriors against the plain driver path;
-10. print a JSON line describing both kernel configurations (times, bound,
-   yardstick, launches, errors, the card) and, last, a JSON line with the
-   device.
+10. the port's bench, ``python -m gp_dla_detection_tpu_torch.bench``, run
+   as a user runs it (no device, dtype or backend flags): at its
+   defaults (the kernel mode at B = 1024, then the fused lean chain's
+   sustained marginal rate at 16,384 spectra, batch 1024, R = 4, with
+   checkpoints) and with ``--driver`` (the full single driver at 8,192):
+   every JSON line printed, finite, from the kernels (the launch counts in
+   each line); in this process the kernel mode at B = 128, 256, 512 and
+   1024 (spectra/s, peak memory), its device function at B = 1024 with no
+   host sync (the sync-debug mode), both kernels at B = 1024 (CUDA
+   events, beside the bound) row for row bit-identical to B = 128
+   launches, their first 128 rows held against the plain versions on the
+   bench's own inputs (5e-5 normalized), and the fused lean chain on the
+   bench's first 1,024 spectra at batch 1024 against batch 128
+   (bit-identical, or within 5e-5 normalized and the decision gate with
+   the reason printed: the first operation of the base redraw whose
+   output depends on the batch, found by replaying it on the inputs the
+   chain gave it), one single and one pair launch per batch;
+11. print a JSON line describing both kernel configurations (times, bound,
+   yardstick, launches, errors, the card; the B = 1024 times and bounds
+   and the bench's lines) and, last, a JSON line with the device.
 
 Weights and data are random, made from ``--seed`` with numpy.  The
 script imports nothing of JAX.
@@ -161,6 +178,9 @@ SCALE_DEMO_ACC = 0.95         # phase 9: exact-multiplicity accuracy floor (the 
 SCALE_BATCH = 256             # phase 9: the demo's per-device batch on one card
 F32_ACCURACY_RATIO = 1.25     # phase 9: the kernel's distance from float64 over
                               # its plain float32 version's, at most
+BENCH_BATCH = 1024            # phase 10: the bench's batch (its default, bench.py's)
+BENCH_SWEEP = (128, 256, 512, 1024)   # phase 10: the kernel mode's batches
+BENCH_TIMEOUT = 300           # phase 10: seconds one bench process may take
 # the previous design's kernel times at the phase-3/5 shapes, for
 # comparison (PERF.md, PR 3's chip runs on NVIDIA H100 80GB HBM3, 700.00 W)
 PR3_MS = {"single": "72.78-72.96", "pair R=4": "91.48-91.58"}
@@ -1841,6 +1861,341 @@ def scale_demo_phase(smi: str) -> dict:
             "spectra_per_s": out["spectra_per_sec_end_to_end"], "seconds": out["seconds"]}
 
 
+def posterior_cdf_steps(sll) -> dict:
+    """``multi_dla._posterior_cdf``'s operations one at a time on a (B, S)
+    tensor, in its order: {op: its output}; the last is the CDF."""
+    import math
+
+    import torch
+
+    out = {}
+    neg_inf = torch.full((), -math.inf, dtype=sll.dtype, device=sll.device)
+    out["where(isnan, -inf)"] = finite = torch.where(torch.isnan(sll), neg_inf, sll)
+    out["amax"] = rowmax = torch.amax(finite, dim=1, keepdim=True)
+    rowmax = torch.where(torch.isfinite(rowmax), rowmax, torch.zeros_like(rowmax))
+    out["exp(x - rowmax)"] = w = torch.exp(finite - rowmax)
+    out["sum"] = total = w.sum(dim=1, keepdim=True)
+    out["where(sum == 0, 1)"] = w = torch.where(total == 0.0, torch.ones_like(w), w)
+    out["cumsum"] = cdf = torch.cumsum(w, dim=1)
+    out["cdf / cdf[:, -1]"] = cdf / cdf[:, -1:]
+    return out
+
+
+def redraw_divergence(big_calls, small_calls) -> dict:
+    """Where the base redraw (``device_inverse_cdf_grid``) of a chain run
+    at one batch departs from the same spectra's run at a smaller batch:
+    each call's captured (B, S) input is replayed on the card through
+    ``posterior_cdf_steps`` and ``_grid_counts`` (one call of the big
+    batch against the small batch's calls, rows stacked), and each op's
+    outputs compared: {op: (entries that differ, rows that differ)},
+    ``"input"`` first.  Fails if the replay does not give the redraw's own
+    result bit for bit."""
+    import torch
+
+    from gp_dla_detection_tpu_torch import multi_dla
+
+    def replay(calls):
+        steps = []
+        for sll, kvec, grid_size in calls:
+            x = sll.cuda()
+            ops = posterior_cdf_steps(x)
+            cdf = ops["cdf / cdf[:, -1]"]
+            grid = S if grid_size is None else grid_size
+            ops["_grid_counts"] = multi_dla._grid_counts(cdf, grid)[
+                :, torch.as_tensor(kvec, dtype=torch.int64, device=x.device)]
+            if not (torch.equal(cdf, multi_dla._posterior_cdf(x)) and torch.equal(
+                    ops["_grid_counts"], multi_dla.device_inverse_cdf_grid(x, kvec, grid_size))):
+                fail("phase 10: the redraw's replay is not the redraw")
+            steps.append({"input": sll, **{op: t.cpu() for op, t in ops.items()}})
+        return {op: torch.cat([s[op] for s in steps]) for op in steps[0]}
+
+    S = big_calls[0][0].shape[1]
+    big, small = replay(big_calls), replay(small_calls)
+    out = {}
+    for op, x in big.items():
+        y = small[op]
+        moved = ~((x == y) | (torch.isnan(x) & torch.isnan(y))) if x.is_floating_point() \
+            else x != y
+        out[op] = (int(moved.sum()), int(moved.any(dim=1).sum()))
+    return out
+
+
+def bench_runs(argv_sets):
+    """``python -m gp_dla_detection_tpu_torch.bench`` with each argument
+    list in ``argv_sets``, one at a time, as a user runs it (no device,
+    dtype or backend flags; ``GPDLA_DRIVER_TIMING=1``): {" ".join(argv):
+    (JSON records, wall s, the drivers' mean stage seconds per batch)}.
+    The kernel library built in phase 2 is reused from ``_build``."""
+    import torch
+
+    out = {}
+    for argv in argv_sets:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "gp_dla_detection_tpu_torch.bench", *argv],
+                cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                timeout=BENCH_TIMEOUT, env=dict(os.environ, GPDLA_DRIVER_TIMING="1"),
+            )
+        except subprocess.TimeoutExpired:
+            fail(f"phase 10: the bench {argv} did not finish in {BENCH_TIMEOUT} s")
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            fail(f"phase 10: the bench {argv} exited {proc.returncode}: {proc.stderr[-4000:]}")
+        records = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        out[" ".join(argv)] = (records, wall, stage_means(proc.stdout))
+    return out
+
+
+def bench_phase(smi: str, seed: int) -> dict:
+    """Phase 10: the port's bench (``gp_dla_detection_tpu_torch.bench``).
+    Its default invocation and ``--driver`` in subprocesses, as a user runs
+    them: every JSON line printed, finite, from the kernels (the launch
+    counters of each mode: one single launch per kernel-mode call, one
+    single and one pair launch per chain batch).  In this process: the
+    kernel mode at BENCH_SWEEP's batches (spectra/s and peak memory), the
+    kernel mode's device function at B = 1024 under the sync-debug mode
+    "warn" (no host sync), both kernels at B = 1024 on the bench's
+    workload (CUDA events, beside ``evidence_bound``), each output row for
+    row bit-identical to the same rows launched at B = 128, and those
+    first 128 rows within 5e-5 normalized of the plain versions on the
+    same inputs (which carries the plain comparison to B = 1024), and the
+    fused lean chain on the bench's first 1,024 spectra at batch 1024
+    against batch 128: bit-identical, or within 5e-5 normalized and the
+    decision gate with the reason printed (which kernel inputs differ
+    between the batches, in how many entries, and the first operation of
+    the base redraw whose output differs when it is replayed on the
+    inputs the chain gave it at each batch); one single and one pair
+    launch per batch."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gp_dla_detection_tpu_torch import bench
+    from gp_dla_detection_tpu_torch.inference import kernel_sample_window
+    from gp_dla_detection_tpu_torch.multi_dla import replicate_draw_pattern
+    from gp_dla_detection_tpu_torch.ops import evidence
+    from gp_dla_detection_tpu_torch.parallel import sharded_multi
+
+    B, S, P, k = BENCH_BATCH, 10000, 1274, 20
+
+    def finite(rec):
+        value = rec.get("value")
+        return (isinstance(value, (int, float)) and bool(np.isfinite(value)) and value > 0
+                and rec.get("backend") == "cuda")
+
+    # ---- the bench as a user runs it
+    runs = bench_runs([[], ["--driver"]])
+    (kernel_line, chain_line), default_s, chain_stages = runs[""]
+    (driver_line,), driver_s, driver_stages = runs["--driver"]
+    for name, rec in (("defaults, kernel mode", kernel_line), ("defaults, chain", chain_line),
+                      ("--driver", driver_line)):
+        say(f"phase 10: bench ({name}): {json.dumps(rec)}")
+        if not finite(rec):
+            fail(f"phase 10: the bench's {name} line is not a finite rate from the kernels")
+    chain_batches = 2 + 16384 // B
+    expect = ((kernel_line, {"single": 6}),
+              (chain_line, {"single": chain_batches, "pair": chain_batches}),
+              (driver_line, {"single": 2 + 8192 // B, "pair": 0}))
+    if any(rec["launches"] != want for rec, want in expect):
+        fail(f"phase 10: the bench's launches {[r['launches'] for r, _ in expect]}, expected "
+             f"{[w for _, w in expect]}")
+    stages = lambda m: ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in m.items() if k != "batches")
+    say(f"phase 10: the bench's drivers, mean per batch of {B} (GPDLA_DRIVER_TIMING=1, "
+        f"warm-up and one-batch runs included): chain ({chain_stages['batches']} batches) "
+        f"{stages(chain_stages)}; --driver ({driver_stages['batches']}) {stages(driver_stages)}")
+    say(f"phase 10: the bench's processes: defaults {default_s:.1f} s, --driver {driver_s:.1f} s "
+        f"(process start, workload, CUDA set-up included); peak memory kernel mode "
+        f"{kernel_line['peak_memory_gb']:.2f} GB, chain {chain_line['peak_memory_gb']:.2f} GB, "
+        f"full single driver {driver_line['peak_memory_gb']:.2f} GB ({smi})")
+
+    # ---- the kernel mode's batch sweep, in this process
+    sweep = {}
+    for b in BENCH_SWEEP:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() / 1e9
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = bench.main(batch_size=b)
+        sweep[b] = rec
+        say(f"phase 10: kernel mode at B={b}: {rec['value']:.1f} spectra/s, peak "
+            f"{rec['peak_memory_gb']:.2f} GB ({base:.2f} GB held before it) ({smi})")
+        if not finite(rec):
+            fail(f"phase 10: the kernel mode at B={b} is not a finite rate from the kernel")
+
+    # ---- the kernel mode's device function at B = 1024: host syncs
+    prob = bench._synthetic_problem(B, S, P, k)
+    params = prob["params"]
+    args = bench.kernel_args(prob, "cuda")
+    window = kernel_sample_window(prob["offsets"], P, params)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            reduced = bench.kernel_step(args, params, sample_chunk=2500, backend="cuda",
+                                        sample_window=window)["reduced"]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    say(f"phase 10: the kernel mode's device function at B={B} under the sync-debug mode: "
+        f"{len(syncs)} host syncs {syncs[:3]}")
+    if syncs or not torch.isfinite(reduced).all():
+        fail("phase 10: the kernel mode's device function syncs with the host or is not finite")
+    del args, reduced
+
+    # ---- both kernels at B = 1024 on the bench's workload, against B = 128
+    order = np.argsort(prob["offsets"], kind="stable")
+    offsets, nhis = prob["offsets"][order], prob["nhis"][order]
+    kin, _ = kernel_inputs(prob, params, offsets, nhis, B, torch.device("cuda"), torch.float32)
+    P6 = P + 2 * params.instrument.width
+    draw_idx, n_draws = replicate_draw_pattern(S, 256, 4)
+    gen = np.random.default_rng(seed + 6)
+    cols = torch.as_tensor(np.stack([gen.permutation(S)[:n_draws][draw_idx] for _ in range(B)]),
+                           device="cuda")
+    z2, n2 = kin[7].gather(1, cols).contiguous(), kin[8].gather(1, cols).contiguous()
+    calls = {
+        "single": lambda rows: evidence.sample_log_likelihoods(
+            *[t[rows] for t in kin], window=window),
+        "pair": lambda rows: evidence.sample_log_likelihoods_pair(
+            *[t[rows] for t in kin], z2[rows], n2[rows], window=window, base_replicates=4),
+    }
+    plain = {
+        "single": lambda rows: evidence.sample_log_likelihoods_reference(
+            *[t[rows] for t in kin], window=window),
+        "pair": lambda rows: evidence.sample_log_likelihoods_pair_reference(
+            *[t[rows] for t in kin], z2[rows], n2[rows], window=window),
+    }
+    kernels = {}
+    for name, call in calls.items():
+        ms = cuda_ms(lambda: call(slice(None)), 3)
+        full = call(slice(None))
+        same = all(torch.equal(full[i:i + BATCH], call(slice(i, i + BATCH)))
+                   for i in range(0, B, BATCH))
+        # the plain version on the bench's own inputs and window: the first
+        # BATCH rows, carried to all B rows by the bit-identity above
+        err = normalized_error(full[:BATCH], plain[name](slice(0, BATCH)))
+        bound = evidence_bound(B, S, P, P6, k, 3, window, name == "pair", n_draws)
+        kernels[name] = {"ms": ms, "bound_ms": bound[0], "bound_pipe": bound[1],
+                         "rows_equal_b128": same, "max_normalized_err": err[0],
+                         "max_abs_err": err[1]}
+        say(f"phase 10: {name} kernel at B={B} S={S} P={P} k={k} windowed"
+            + (" (R=4 layout)" if name == "pair" else "")
+            + f": {ms:.2f} ms; bound {bound[0]:.2f} ms by the {bound[1]} "
+            f"({bound[0] / ms:.2f} of it reached); rows bit-identical to B={BATCH} launches "
+            f"{same}; its first {BATCH} rows vs plain f32 on the bench's inputs normalized "
+            f"{err[0]:.3e}, abs {err[1]:.3e} ({smi})")
+        if not same:
+            fail(f"phase 10: the {name} kernel's B={B} rows differ from B={BATCH} launches")
+        if not err[0] < NORMALIZED_BOUND:
+            fail(f"phase 10: the {name} kernel disagrees with its plain version on the bench's "
+                 f"inputs: {err[0]:.3e} >= {NORMALIZED_BOUND}")
+        del full
+    del kin, z2, n2, cols
+
+    # ---- the fused lean chain at batch 1024 against batch 128
+    work = bench.driver_workload(B, S, P, k)
+
+    real = {"single": evidence.sample_log_likelihoods, "pair": evidence.sample_log_likelihoods_pair}
+
+    real_redraw = sharded_multi.device_inverse_cdf_grid
+
+    def chain(batch):
+        """The chain's results and launches at ``batch``, each kernel's
+        tensor inputs over all its launches (rows stacked), and the base
+        redraw's calls (its (B, S) input on the host, its grid)."""
+        seen = {name: [] for name in real}
+        redraws = []
+
+        def spy(name):
+            def call(*a, **kw):
+                seen[name].append([t.cpu() for t in a if torch.is_tensor(t)])
+                return real[name](*a, **kw)
+            return call
+
+        def redraw(sll, kvec, grid_size=None):
+            redraws.append((sll.cpu(), kvec, grid_size))
+            return real_redraw(sll, kvec, grid_size)
+
+        evidence.sample_log_likelihoods, evidence.sample_log_likelihoods_pair = (
+            spy("single"), spy("pair"))
+        sharded_multi.device_inverse_cdf_grid = redraw
+        evidence.launch_count = evidence.pair_launch_count = 0
+        try:
+            res = bench.run_driver(work, slice(0, B), None, per_device_batch=batch, lean=True,
+                                   two_stage=True)
+        finally:
+            evidence.sample_log_likelihoods, evidence.sample_log_likelihoods_pair = (
+                real["single"], real["pair"])
+            sharded_multi.device_inverse_cdf_grid = real_redraw
+        inputs = {name: [torch.cat(parts) for parts in zip(*calls)]
+                  for name, calls in seen.items()}
+        return (result_arrays(res), (evidence.launch_count, evidence.pair_launch_count), inputs,
+                redraws)
+
+    big, big_launches, big_in, big_redraws = chain(B)
+    small, small_launches, small_in, small_redraws = chain(BATCH)
+    redraw_steps = redraw_divergence(big_redraws, small_redraws)
+    if big_launches != (1, 1) or small_launches != (B // BATCH, B // BATCH):
+        fail(f"phase 10: chain launches {big_launches} at batch {B}, {small_launches} at "
+             f"batch {BATCH}")
+    names = ("ext_wavelengths", "flux", "mu", "M", "omega2", "noise_variance", "mask",
+             "z_dlas", "nhi", "z_dlas2", "nhi2")
+    # per kernel, each input that differs: (entries that differ, entries)
+    moved_inputs = {
+        name: {n: (int((x != y).sum()), x.numel())
+               for n, x, y in zip(names, big_in[name], small_in[name]) if not torch.equal(x, y)}
+        for name in real
+    }
+    pick = lambda a: np.argmax(a["multi_model_posteriors"], axis=1)
+    picks_same = np.array_equal(pick(big), pick(small))
+    if same_bits(big, small):
+        verdict = "bit-identical"
+    else:
+        diff = sorted(n for n in small if not np.array_equal(
+            big[n], small[n], equal_nan=small[n].dtype.kind == "f"))
+        ev_err = max(
+            normalized_error(torch.as_tensor(np.nan_to_num(big[n])),
+                             torch.as_tensor(np.nan_to_num(small[n])))[0]
+            for n in ("log_likelihoods_no_dla", "log_likelihoods_dla", "multi_log_likelihoods_dla2"))
+        p_small, p_big = small["p_dlas"], big["p_dlas"]
+        hard = int((((p_small > 0.9) != (p_big > 0.9))
+                    & (np.abs(p_small - 0.9) > DECISION_MARGIN)).sum())
+        p99 = float(np.quantile(np.abs(p_big - p_small), 0.99))
+        # the reason: the kernels' inputs that differ between the batches
+        # (the kernels' rows do not depend on the batch, above) and, where
+        # the base draws do, the redraw's first op whose output moves
+        reasons = [f"the {name} kernel's "
+                   + ", ".join(f"{n} in {c} of {total} entries" for n, (c, total) in moved.items())
+                   + " differ between the batches" for name, moved in moved_inputs.items() if moved]
+        first = next(((op, c) for op, c in redraw_steps.items() if c[0]), None)
+        if moved_inputs["pair"] and first is not None and first[0] == "input":
+            reasons.append(f"the base redraw's input differs in {first[1][0]} entries")
+        elif moved_inputs["pair"] and first is not None:
+            reasons.append(
+                f"the base redraw's input is bit-identical at both batches, and the first of "
+                f"its ops whose output depends on the batch is {first[0]} ({first[1][0]} "
+                f"entries in {first[1][1]} rows)")
+        reason = "; ".join(reasons) or "no kernel input differs: the reductions after the kernels"
+        verdict = (f"not bit-identical ({', '.join(diff)} differ: {reason}); evidences "
+                   f"normalized {ev_err:.3e}, flips outside margin {hard}, |dp| p99 {p99:.3e}")
+        if not ev_err < NORMALIZED_BOUND or hard or not p99 < DECISION_P99:
+            fail(f"phase 10: the chain at batch {B} fails the kernel bound or the decision "
+                 f"gate against batch {BATCH}")
+    say(f"phase 10: the base redraw replayed op by op on the inputs the chain gave it, batch "
+        f"{B} vs {BATCH} rows per call, (entries, rows) that differ: {redraw_steps}")
+    say(f"phase 10: fused lean chain (R=4) on the bench's first {B} spectra, batch {B} "
+        f"vs batch {BATCH}: {verdict}; kernel inputs that differ {moved_inputs}; 3-class picks equal "
+        f"{picks_same} (picks {np.bincount(pick(big), minlength=3).tolist()}); launches "
+        f"{big_launches} and {small_launches} ({smi})")
+    if not picks_same:
+        fail(f"phase 10: the chain's picks at batch {B} differ from batch {BATCH}")
+    say("phase 10 ok")
+    return {"kernel_line": kernel_line, "chain_line": chain_line, "driver_line": driver_line,
+            "sweep": sweep, "kernels": kernels}
+
+
 def kernel_inputs(w, params, offsets, nhis, n, device, dtype, num_lines=3):
     """Prepared per-spectrum inputs of the evidence kernel for the first
     ``n`` spectra (the port's own _prepare_spectrum), samples sorted."""
@@ -2327,14 +2682,23 @@ def main() -> None:
     demo = scale_demo_phase(smi)
     dl = demo["launches"]
 
-    # ---- phase 10: results
+    # ---- phase 10: the port's bench
+    bp = bench_phase(smi, args.seed)
+    bk = bp["kernels"]
+    bench_launches = {
+        name: bp["kernel_line"]["launches"].get(name, 0) + bp["chain_line"]["launches"][name]
+        for name in ("single", "pair")
+    }
+
+    # ---- phase 11: results
     say(json.dumps({"kernels": [
         {
             "name": "evidence_single_f32",
             "route": "cuda",
             "source": "gp_dla_detection_tpu_torch/csrc/evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/evidence_pallas.py:106",
-            "launches": rl["process"][0] + rl["multi"][0] + dl[0],
+            "launches": rl["process"][0] + rl["multi"][0] + dl[0] + bench_launches["single"],
+            "launches_bench_default": bench_launches["single"],
             "launches_release_process": rl["process"][0],
             "launches_release_multi": rl["multi"][0],
             "launches_lean_chain": lean_launches[0],
@@ -2357,6 +2721,12 @@ def main() -> None:
             "ms_b256_scale_demo": demo["call_ms"]["single"],
             "max_normalized_err_b256": err256[0],
             "spectra_per_s": rate,
+            "ms_b1024": bk["single"]["ms"],
+            "bound_ms_b1024": bk["single"]["bound_ms"],
+            "b1024_rows_equal_b128": bk["single"]["rows_equal_b128"],
+            "max_normalized_err_b1024_bench": bk["single"]["max_normalized_err"],
+            "bench_kernel_mode_spectra_per_s": {b: r["value"] for b, r in bp["sweep"].items()},
+            "bench_kernel_mode_peak_gb": {b: r["peak_memory_gb"] for b, r in bp["sweep"].items()},
             "card": smi,
         },
         {
@@ -2364,7 +2734,8 @@ def main() -> None:
             "route": "cuda",
             "source": "gp_dla_detection_tpu_torch/csrc/evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/evidence_pallas.py:106",
-            "launches": rl["multi"][1] + dl[1],
+            "launches": rl["multi"][1] + dl[1] + bench_launches["pair"],
+            "launches_bench_default": bench_launches["pair"],
             "launches_lean_chain": lean_launches[1],
             "launches_scale_demo": dl[1],
             "max_abs_err": pair_worst[1],
@@ -2391,6 +2762,11 @@ def main() -> None:
             "release_stage_seconds": release["stage_seconds"],
             "scale_demo_spectra_per_s": demo["spectra_per_s"],
             "scale_demo_kernel_share": demo["kernel_share"],
+            "ms_b1024": bk["pair"]["ms"],
+            "bound_ms_b1024": bk["pair"]["bound_ms"],
+            "b1024_rows_equal_b128": bk["pair"]["rows_equal_b128"],
+            "max_normalized_err_b1024_bench": bk["pair"]["max_normalized_err"],
+            "bench_lines": [bp["kernel_line"], bp["chain_line"], bp["driver_line"]],
             "card": smi,
         },
     ]}))

@@ -50,6 +50,7 @@ __all__ = [
     "dla_rate_priors",
     "correct_prior_dla_flags",
     "compute_sample_window",
+    "kernel_sample_window",
     "spectrum_log_likelihoods",
     "batch_log_likelihoods",
     "finalize_posteriors",
@@ -198,6 +199,18 @@ def compute_sample_window(
     window = int(np.ceil(max(spread * num_pixels, exact))) + 2 * WINDOW_MARGIN
     window = -(-window // 8) * 8
     return window if window < num_pixels else None
+
+
+def kernel_sample_window(offset_samples, num_pixels: int, params: Parameters):
+    """The evidence kernel's sample window for ``num_pixels``-pixel
+    padded spectra: :func:`compute_sample_window` at the kernel's tile
+    (``evidence.SAMPLE_TILE``) over the extended grid (both
+    instrumental-broadening margins) and ``params``' lines and pixel
+    spacing.  The one window every kernel caller uses."""
+    return compute_sample_window(
+        offset_samples, evidence.SAMPLE_TILE, num_pixels + 2 * params.instrument.width,
+        num_lines=params.num_lines, pixel_spacing=params.instrument.pixel_spacing,
+    )
 
 
 def _prepare_spectrum(
@@ -557,12 +570,8 @@ def process_spectra(
     offsets_host = np.asarray(offset_samples, np_dtype)
     nhis_host = np.asarray(nhi_samples, np_dtype)
     if backend == "cuda":
-        sample_window = compute_sample_window(
-            offset_samples,
-            evidence.SAMPLE_TILE,
-            spectra.wavelengths.shape[1] + 2 * params.instrument.width,
-            pixel_spacing=params.instrument.pixel_spacing,
-            num_lines=params.num_lines,
+        sample_window = kernel_sample_window(
+            offset_samples, spectra.wavelengths.shape[1], params
         )
         if sample_window is not None:
             # sort ONCE on the host (the sample set is static) and

@@ -36,7 +36,7 @@ from .inference import (
     InferenceResults,
     PaddedSpectra,
     _prepare_spectrum,
-    compute_sample_window,
+    kernel_sample_window,
     process_spectra,
 )
 from .models.qso_model import GPModel
@@ -682,12 +682,7 @@ def process_spectra_multi(
     if backend == "cuda":
         # z-sort the fresh axis; the base columns travel with their pairs
         order = np.argsort(offsets, kind="stable")
-        window = compute_sample_window(
-            offsets, evidence.SAMPLE_TILE,
-            spectra.wavelengths.shape[1] + 2 * params.instrument.width,
-            num_lines=params.num_lines,
-            pixel_spacing=params.instrument.pixel_spacing,
-        )
+        window = kernel_sample_window(offsets, spectra.wavelengths.shape[1], params)
     # the pair columns this rank evaluates (original sample indices): a
     # z-sorted block on a sample axis, else all of them in the layout
     split = sample_blocks(offsets, mesh)

@@ -44,9 +44,9 @@ from ..inference import (
     InferenceResults,
     PaddedSpectra,
     batch_log_likelihoods,
-    compute_sample_window,
     dla_rate_priors,
     finalize_posteriors,
+    kernel_sample_window,
     posteriors_from_evidence,
 )
 from ..models.qso_model import GPModel
@@ -333,12 +333,7 @@ def process_spectra_sharded(
     # z-sorted block and the gathered columns are ``columns``
     window = order = None
     if backend == "cuda":
-        window = compute_sample_window(
-            offsets, evidence.SAMPLE_TILE,
-            spectra.wavelengths.shape[1] + 2 * params.instrument.width,
-            num_lines=params.num_lines,
-            pixel_spacing=params.instrument.pixel_spacing,
-        )
+        window = kernel_sample_window(offsets, spectra.wavelengths.shape[1], params)
         if window is not None:
             order = np.argsort(offsets, kind="stable")
     split = sample_blocks(offsets, mesh)

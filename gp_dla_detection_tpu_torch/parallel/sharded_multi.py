@@ -79,8 +79,8 @@ from ..inference import (
     InferenceResults,
     PaddedSpectra,
     batch_log_likelihoods,
-    compute_sample_window,
     dla_rate_priors,
+    kernel_sample_window,
     posteriors_from_evidence,
 )
 from ..models.qso_model import GPModel
@@ -260,12 +260,7 @@ def process_spectra_multi_lean(
 
     window = None
     if use_cuda:
-        window = compute_sample_window(
-            offsets, evidence.SAMPLE_TILE,
-            spectra.wavelengths.shape[1] + 2 * params.instrument.width,
-            num_lines=params.num_lines,
-            pixel_spacing=params.instrument.pixel_spacing,
-        )
+        window = kernel_sample_window(offsets, spectra.wavelengths.shape[1], params)
     # the pair stage runs on the z-sorted fresh axis under "cuda" (the
     # kernel's window needs it); the single stage sorts and un-sorts
     # itself, so its columns stay in original order for the redraw

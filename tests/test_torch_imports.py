@@ -71,6 +71,7 @@ PORT_MODULES = [
     "gp_dla_detection_tpu_torch.analysis.cosmology",
     "gp_dla_detection_tpu_torch.analysis.pb",
     "gp_dla_detection_tpu_torch.analysis.plots",
+    "gp_dla_detection_tpu_torch.bench",
 ]
 
 
