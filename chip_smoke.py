@@ -7,9 +7,10 @@ Phases, each reported on its own line; any failure exits non-zero:
 
 1. find the card (a CUDA device is required; nothing runs on the CPU)
    and print its name and power limit as nvidia-smi reports them;
-2. build the evidence kernel (csrc/evidence.cu) with nvcc and print
-   ptxas's registers, shared memory and spills for both k = 20
-   configurations;
+2. build every kernel source (csrc/evidence.cu, redraw.cu, cddf.cu,
+   null_evidence.cu), one nvcc each, all started together, and print
+   ptxas's registers, shared memory and spills for both k = 20 evidence
+   configurations and the redraw, CDDF sums and null evidence kernels;
 3. hold the kernel's single-absorber configuration against its plain
    PyTorch version on the card at the production shapes (P = 1274 px,
    k = 20, S = 10,000 samples, 3 lines, windowed and full grid, plus a
@@ -33,8 +34,8 @@ Phases, each reported on its own line; any failure exits non-zero:
 6. run the fused lean two-stage {0,1,2}-DLA chain
    ``parallel.sharded_multi.process_spectra_multi_lean``, with no
    device, dtype or backend named, at its default R = 4 on the same spectra with a
-   second DLA in every fourth one: one single and one pair launch per
-   batch, the R = 4 pattern on the base redshifts the pair kernel
+   second DLA in every fourth one: one single, one pair and one redraw
+   launch per batch, the R = 4 pattern on the base redshifts the pair kernel
    receives, finite evidences, posteriors that sum to 1, NaN pair
    evidence only where a row has no valid pair; the process's first
    pipelined run under ``torch.profiler``, then the main run at the
@@ -44,8 +45,13 @@ Phases, each reported on its own line; any failure exits non-zero:
    under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), and
    ``torch.profiler`` splits of warm runs at the default and at depth 1
    (kernels, other device ops, device idle, the host's wait) beside the
-   first run's, with the host ops that the first run paid more for;
-   then at R = 1 (depth 1 and the default in turns),
+   first run's, with the host ops that the first run paid more for; the
+   redraw kernel (csrc/redraw.cu) on the inputs the chain gave it: its
+   CDF within twice the plain float32 cumsum's distance from float64, its
+   draws equal to the grid counts of its own CDF, its rows bit-identical
+   at B = 1 and 128 and permuted, the draws that differ from the plain
+   version's counted (knife edges), its time beside the plain sequence's
+   and its bound; then at R = 1 (depth 1 and the default in turns),
    holding a subset against the classic driver on the float64 plain path
    (no decision flips where the float64 winner's posterior exceeds 0.91,
    pair evidences within rtol 5e-4 / atol 5e-3);
@@ -56,8 +62,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    and ``python -m gp_dla_detection_tpu_torch.pipeline --lean --multi-dla
    --cddf-inputs`` (no device, dtype or backend flags), stage by stage, with
    the L-BFGS budget cut to 40 iterations: each stage's wall time, one
-   single launch per batch in the process stage and one single and one
-   pair launch per batch in the multi stage, finite statistics, posteriors
+   single launch per batch in the process stage and one single, pair,
+   redraw and CDDF sums launch per batch in the multi stage, finite
+   statistics, posteriors
    that sum to 1; on 32 release spectra the float32 CUDA CDDF reduction
    against the float64 plain one (mass channel = p_DLA to 1e-5, the same
    exact entries away from knife edges); the lean R = 1 statistics
@@ -82,8 +89,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    and fetch seconds, summarized per driver and depth): this process runs
    each at depth 1 and at the default in turns, bit-identical; every rank
    holds the whole result, bit-identical to this process's depth-1 run at
-   the same per-rank batch (the CDDF reduction's float64 atomics within
-   1e-6), one
+   the same per-rank batch (the CDDF inputs included), one
    single (and one pair) launch per rank per super-batch, checkpoints
    written by rank 0 alone and resumed by a one-rank rerun; on a data 1 x
    sample 2 mesh the single driver within 5e-5 normalized and the
@@ -122,15 +128,27 @@ Phases, each reported on its own line; any failure exits non-zero:
    host sync (the sync-debug mode), both kernels at B = 1024 (CUDA
    events, beside the bound) row for row bit-identical to B = 128
    launches, their first 128 rows held against the plain versions on the
-   bench's own inputs (5e-5 normalized), and the fused lean chain on the
-   bench's first 1,024 spectra at batch 1024 against batch 128
-   (bit-identical, or within 5e-5 normalized and the decision gate with
-   the reason printed: the first operation of the base redraw whose
-   output depends on the batch, found by replaying it on the inputs the
-   chain gave it), one single and one pair launch per batch;
-11. print a JSON line describing both kernel configurations (times, bound,
-   yardstick, launches, errors, the card; the B = 1024 times and bounds
-   and the bench's lines) and, last, a JSON line with the device.
+   bench's own inputs (5e-5 normalized), and the fused lean chain with
+   the CDDF inputs on the bench's first 1,024 spectra at batch 1024
+   against batches 256 and 128: bit-identical in every array, or the
+   phase fails with the kernel inputs that differ; one single, pair,
+   redraw and CDDF sums launch per batch; the plain redraw (the
+   backend="torch" path) replayed op by op on the chain's inputs at both
+   batches, the first of its ops whose output depends on the batch
+   printed; the redraw kernel's checks of phase 6 on the bench's inputs
+   (R = 4), its rows at B = 1, 128 and 1024, its time at B = 1024; the
+   CDDF sums kernel (csrc/cddf.cu) on the chain's own inputs at B = 1024:
+   within 1e-12 relative of the plain float64 sums, bit-identical over
+   three runs and for a row alone, its time at B = 128 and 1024 beside
+   the plain sums' and its bound; the null evidence kernel
+   (csrc/null_evidence.cu) on the bench's spectra: within 5e-5
+   normalized of its plain version and 5e-4 of float64, each row the same
+   bits at B = 1, 128 and 256, shifted by one and permuted (the plain
+   version's rows that move printed), its time at B = 128 and 1024;
+11. print a JSON line describing both evidence kernel configurations,
+   the redraw, the CDDF sums and the null evidence kernels (times, bound, yardstick,
+   launches, errors, the card; the B = 1024 times and bounds and the
+   bench's lines) and, last, a JSON line with the device.
 
 Weights and data are random, made from ``--seed`` with numpy.  The
 script imports nothing of JAX.
@@ -147,6 +165,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 NORMALIZED_BOUND = 5e-5       # kernel vs plain float32 (tests/test_evidence_pallas.py)
@@ -181,6 +200,8 @@ F32_ACCURACY_RATIO = 1.25     # phase 9: the kernel's distance from float64 over
 BENCH_BATCH = 1024            # phase 10: the bench's batch (its default, bench.py's)
 BENCH_SWEEP = (128, 256, 512, 1024)   # phase 10: the kernel mode's batches
 BENCH_TIMEOUT = 300           # phase 10: seconds one bench process may take
+BENCH_CHAIN_BATCHES = (1024, 256, 128)   # phase 10: the chain's batches, bit-identical
+KERNEL_SOURCES = ("evidence", "redraw", "cddf", "null_evidence")   # csrc/<name>.cu
 # the previous design's kernel times at the phase-3/5 shapes, for
 # comparison (PERF.md, PR 3's chip runs on NVIDIA H100 80GB HBM3, 700.00 W)
 PR3_MS = {"single": "72.78-72.96", "pair R=4": "91.48-91.58"}
@@ -221,6 +242,14 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def ptxas_usage(report: str) -> str:
+    """ptxas's register, shared-memory and spill lines for a library's
+    one kernel (-Xptxas -v)."""
+    keep = [l.strip().removeprefix("ptxas info    : ") for l in report.splitlines()
+            if "Used" in l or "spill" in l]
+    return " | ".join(keep) or "no ptxas report"
 
 
 def kernel_report(report: str, k: int) -> str:
@@ -518,13 +547,12 @@ def write_release(base, seed: int, device, n_test: int, n_dr9: int):
 def run_cli_stages(argv, stages, params_factory):
     """``python -m gp_dla_detection_tpu_torch.pipeline <argv> --stage s``
     for each stage in turn, in this process so that the kernels' launch
-    counts can be read: per stage the wall seconds, the (single, pair)
-    launches and what it printed.  ``params_factory`` stands in for
+    counts can be read: per stage the wall seconds, the launches of each
+    kernel (``launch_counts``) and what it printed.  ``params_factory`` stands in for
     ``Parameters`` inside the CLI (the L-BFGS budget cut)."""
     import io
 
     import gp_dla_detection_tpu_torch.pipeline as pipeline
-    from gp_dla_detection_tpu_torch.ops import evidence
 
     seconds, launches, printed = {}, {}, {}
     full = pipeline.Parameters
@@ -532,15 +560,14 @@ def run_cli_stages(argv, stages, params_factory):
     try:
         for stage in stages:
             out = io.StringIO()
-            evidence.launch_count = 0
-            evidence.pair_launch_count = 0
+            reset_counts()
             sync()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 pipeline.main([*argv, "--stage", stage])
             sync()
             seconds[stage] = time.perf_counter() - t0
-            launches[stage] = (evidence.launch_count, evidence.pair_launch_count)
+            launches[stage] = launch_counts()
             printed[stage] = out.getvalue()
     finally:
         pipeline.Parameters = full
@@ -575,8 +602,8 @@ def recorded_reductions(sharded_multi, log: list):
     entry also holds the reducer's (spec, offsets, lnhis, order)."""
     make = sharded_multi.make_cddf_reducer
 
-    def spy_make(spec, offsets, lnhis, order=None, device=None):
-        reduce_fn, consts = make(spec, offsets, lnhis, order=order, device=device)
+    def spy_make(spec, offsets, lnhis, order=None, device=None, **kw):
+        reduce_fn, consts = make(spec, offsets, lnhis, order=order, device=device, **kw)
         log.append((spec, offsets, lnhis, order))
 
         def spy(c, *args):
@@ -697,6 +724,27 @@ def nonfinite_json(x, path: str = "") -> list[str]:
     return [path] if isinstance(x, float) and not np.isfinite(x) else []
 
 
+COUNTED = "(single, pair, redraw, CDDF sums, null evidence)"
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from gp_dla_detection_tpu_torch import cddf_inputs
+    from gp_dla_detection_tpu_torch.ops import evidence, low_rank_mvn, redraw
+
+    evidence.launch_count = evidence.pair_launch_count = 0
+    redraw.launch_count = cddf_inputs.launch_count = low_rank_mvn.launch_count = 0
+
+
+def launch_counts() -> tuple[int, int, int, int, int]:
+    """The launches of each kernel in ``COUNTED`` since ``reset_counts``."""
+    from gp_dla_detection_tpu_torch import cddf_inputs
+    from gp_dla_detection_tpu_torch.ops import evidence, low_rank_mvn, redraw
+
+    return (evidence.launch_count, evidence.pair_launch_count, redraw.launch_count,
+            cddf_inputs.launch_count, low_rank_mvn.launch_count)
+
+
 def sync() -> None:
     import torch
 
@@ -773,10 +821,10 @@ def release_phase(seed: int, smi: str, chain, device: str = "cuda", backend: str
         stages = ("catalog", "preload", "learn", "samples", "process", "multi", "all")
         seconds, launches, printed = run_cli_stages(argv, stages, release_parameters)
         n_batches = -(-RELEASE_TEST // BATCH)
-        expected = {s: (0, 0) for s in stages}
-        expected.update(process=(n_batches, 0), multi=(n_batches, n_batches))
+        expected = {s: (0, 0, 0, 0, 0) for s in stages}
+        expected.update(process=(n_batches, 0, 0, 0, n_batches), multi=(n_batches,) * 5)
         if launches != expected:
-            fail(f"release: (single, pair) launches per stage {launches}, expected {expected}")
+            fail(f"release: {COUNTED} launches per stage {launches}, expected {expected}")
         summary = json.loads(printed["all"])
         from gp_dla_detection_tpu_torch.models.qso_model import GPModel
         from gp_dla_detection_tpu_torch.pipeline import Pipeline, PipelineConfig
@@ -793,7 +841,7 @@ def release_phase(seed: int, smi: str, chain, device: str = "cuda", backend: str
             + f"; learn on {RELEASE_DR9 - int((truth[:RELEASE_DR9] > 0).sum())} sightlines, "
             f"L-BFGS budget cut to {iters} iterations / {evals} evaluations: used "
             f"{meta['iterations']} / {meta['fun_evals']} ({meta['termination']}); "
-            f"'all' = SNRs + ASCII + analysis; (single, pair) launches: process "
+            f"'all' = SNRs + ASCII + analysis; {COUNTED} launches: process "
             f"{launches['process']}, multi {launches['multi']} for {n_batches} batches ({smi})")
 
         with np.load(pipe.multi_results_path) as f:
@@ -1224,20 +1272,18 @@ def run_ranks(world, backend, inputs_path, params, training_params, out_dir) -> 
     return seconds
 
 
-def compare_results(got: dict, ref: dict) -> tuple[bool, float]:
-    """(every array but the CDDF reduction's bit-identical, the CDDF
-    arrays' max relative difference): the reduction sums float64 with
-    scatter_add_, whose atomics add in another order from run to run."""
+def compare_results(got: dict, ref: dict, plain_cddf: bool = False) -> bool:
+    """Every array bit-identical.  ``plain_cddf``: runs on the plain path
+    (``backend="torch"``), whose CDDF reduction sums float64 with
+    scatter_add_, whose atomics add in another order from run to run: the
+    cddf_* arrays are left out (the caller bounds them).  Under the
+    kernels (``csrc/cddf.cu``) every array is held bit for bit."""
     import numpy as np
 
-    exact = sorted(got) == sorted(ref) and all(
+    return sorted(got) == sorted(ref) and all(
         np.array_equal(got[k], v, equal_nan=v.dtype.kind == "f")
-        for k, v in ref.items() if not k.startswith("cddf_")
+        for k, v in ref.items() if not (plain_cddf and k.startswith("cddf_"))
     )
-    cddf = max((float(np.max(np.abs(got[k].astype(np.float64) - v) / np.maximum(np.abs(v), 1e-30),
-                             initial=0.0))
-                for k, v in ref.items() if k.startswith("cddf_")), default=0.0)
-    return exact, cddf
 
 
 def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
@@ -1296,8 +1342,8 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
                 stages.setdefault(key, []).append(stage_means(lines.getvalue()))
                 if name not in ref:
                     ref[name], ref_seconds[name], pipelined_seconds[name] = got, [], []
-                same, cddf_rel = compare_results(got, ref[name])
-                if not same or not cddf_rel <= REPLAY_RTOL:
+                same = compare_results(got, ref[name])
+                if not same:
                     fail(f"phase 8: {name} in one process at depth "
                          f"{1 if serial else 'default'} differs from the serial run")
                 (ref_seconds if serial else pipelined_seconds)[name].append(seconds)
@@ -1309,7 +1355,7 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
             say(f"phase 8: {name} in one process on {len(spectra)} spectra (batch {RANK_BATCH}), "
                 f"wall s, in turns: depth 1 {secs(ref_seconds[name])}, the default (depth 4, "
                 f"upload thread) {secs(pipelined_seconds[name])}, bit-identical"
-                + (" (the CDDF reduction's atomics within 1e-6)" if name == "chain" else "")
+                + (" (the CDDF inputs included)" if name == "chain" else "")
                 + f"; per-batch stage s (GPDLA_DRIVER_TIMING=1, {stages[name, 'serial'][0]['batches']} "
                 f"batch lines a run): depth 1 {mean('serial')}; the default {mean('default')} ({smi})")
         # the ranks run the default: their one-process yardstick
@@ -1335,7 +1381,7 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
                 with np.load(tmp / f"{backend}_{name}.npz") as f:
                     got = {k: f[k] for k in f.files}
                 metas = [meta(backend, name, r) for r in range(world)]
-                same, cddf_rel = compare_results(got, ref[name])
+                same = compare_results(got, ref[name])
                 replicated = all(m["digest"] == digest(got) for m in metas)
                 pair = 1 if name == "chain" or name == "classic" else 0
                 n_batches = -(-len(spectra) // (world * RANK_BATCH))
@@ -1347,12 +1393,11 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
                 say(f"phase 8: {name}, {world} {backend} rank(s) on {len(spectra)} spectra "
                     f"(batch {RANK_BATCH} per rank): wall {max(m['seconds'] for m in metas):.3f} s "
                     f"(one process: {ref_seconds[name]:.3f} s); bit-identical to one process "
-                    f"{same}" + (f" (the CDDF reduction's atomics: max rel {cddf_rel:.1e})"
-                                 if name == "chain" else "")
+                    f"{same}" + (" (the CDDF inputs included)" if name == "chain" else "")
                     + f", every rank holds it {replicated}; (single, pair) launches per rank "
                     f"{launches}; checkpoint files written per rank {writes} "
                     f"(ranks share one card: correctness, not scaling; {smi})")
-                if not same or not replicated or not cddf_rel <= REPLAY_RTOL:
+                if not same or not replicated:
                     fail(f"phase 8: {name} on {world} {backend} rank(s) differs from one process")
                 if any(l != want for l in launches) or writes != want_writes:
                     fail(f"phase 8: {name}: launches {launches} (want {want} per rank), "
@@ -1394,7 +1439,7 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
         with np.load(tmp / "gloo_sample_chain.npz") as f:
             got = {k: f[k] for k in f.files}
         metas = [meta("gloo", "sample_chain", r) for r in range(2)]
-        same, _ = compare_results(got, ref_chain)
+        same = compare_results(got, ref_chain, plain_cddf=True)
         replicated = all(m["digest"] == digest(got) for m in metas)
         hist_rel = float(np.max(np.abs(got["cddf_hist"].astype(np.float64) - ref_chain["cddf_hist"])
                                 / np.maximum(np.abs(ref_chain["cddf_hist"]), 1e-30)))
@@ -1882,8 +1927,9 @@ def posterior_cdf_steps(sll) -> dict:
 
 
 def redraw_divergence(big_calls, small_calls) -> dict:
-    """Where the base redraw (``device_inverse_cdf_grid``) of a chain run
-    at one batch departs from the same spectra's run at a smaller batch:
+    """Where the plain base redraw (``device_inverse_cdf_grid_reference``,
+    the ``backend="torch"`` path) on a chain run's inputs at one batch
+    departs from the same spectra's at a smaller batch:
     each call's captured (B, S) input is replayed on the card through
     ``posterior_cdf_steps`` and ``_grid_counts`` (one call of the big
     batch against the small batch's calls, rows stacked), and each op's
@@ -1904,7 +1950,8 @@ def redraw_divergence(big_calls, small_calls) -> dict:
             ops["_grid_counts"] = multi_dla._grid_counts(cdf, grid)[
                 :, torch.as_tensor(kvec, dtype=torch.int64, device=x.device)]
             if not (torch.equal(cdf, multi_dla._posterior_cdf(x)) and torch.equal(
-                    ops["_grid_counts"], multi_dla.device_inverse_cdf_grid(x, kvec, grid_size))):
+                    ops["_grid_counts"],
+                    multi_dla.device_inverse_cdf_grid_reference(x, kvec, grid_size))):
                 fail("phase 10: the redraw's replay is not the redraw")
             steps.append({"input": sll, **{op: t.cpu() for op, t in ops.items()}})
         return {op: torch.cat([s[op] for s in steps]) for op in steps[0]}
@@ -1918,6 +1965,156 @@ def redraw_divergence(big_calls, small_calls) -> dict:
             else x != y
         out[op] = (int(moved.sum()), int(moved.any(dim=1).sum()))
     return out
+
+
+# FP64 outside the tensor cores on one H100 SXM: 34 TFLOP/s counting an
+# FMA as two (NVIDIA's data sheet), i.e. 17e12 unfused operations/s
+FP64_OPS_PER_S = 17e12
+REDRAW_OPS = 15       # FP32 operations per (row, sample): subtract, exp, the
+                      # scan's add, the divide, the grid cell's multiply,
+                      # add, floor and two correction steps
+CDDF_OPS = 16         # FP64 operations per (row, sample): the eight channels'
+                      # values (five products, a subtract, two compares) and
+                      # adds, and acc's add
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """(the least ms the card could take, "bytes" or "operations")."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / ops_per_s * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def redraw_bound(B: int, S: int, J: int) -> tuple[float, str]:
+    """The redraw kernel: sll read once (float32), kvec read once, the
+    (B, J) int64 draws written once."""
+    return bound(4 * B * S + 8 * J + 8 * B * J, REDRAW_OPS * B * S, FP32_OPS_PER_S)
+
+
+def cddf_bound(B: int, S: int, n_bins: int) -> tuple[float, str]:
+    """The CDDF sums: p, p2s, base and zloc (8 B each per (row, sample))
+    and five (S,) tables read once, acc (B, S) and hist (B, 8, n_bins)
+    float64 written once."""
+    nbytes = 8 * 4 * B * S + 8 * 5 * S + 8 * B * S + 8 * B * 8 * n_bins
+    return bound(nbytes, CDDF_OPS * B * S, FP64_OPS_PER_S)
+
+
+def null_bound(B: int, P: int, k: int) -> tuple[float, str]:
+    """The null evidence: y, mu, d (float32) and the mask (1 B) per pixel
+    and M (k float32 per pixel) read once, B float32 written once; per
+    pixel k (k + 1) / 2 + k multiply-adds (FP32, one operation each)
+    and ~10 more for the weights and sums."""
+    return bound(B * P * (4 * 3 + 4 * k + 1) + 4 * B,
+                 B * P * (k * (k + 1) // 2 + k + 10), FP32_OPS_PER_S)
+
+
+def redraw_check(calls, label: str, smi: str) -> dict:
+    """The redraw kernel on captured chain inputs (``calls``: the (B, S)
+    sample log likelihoods on the host, kvec, grid size), each call
+    against its plain version on the card: the kernel's CDF within twice
+    the plain float32 scan's distance from the float64 CDF, its draws
+    equal to ``grid_counts_reference`` of its own CDF, and the draws
+    that differ from the plain version's (the knife edge, not a fault)
+    counted.  Returns the worst CDF errors and the differing draws."""
+    import torch
+
+    from gp_dla_detection_tpu_torch.ops import redraw
+
+    worst = {"kernel": 0.0, "plain": 0.0, "vs_plain": 0.0}
+    moved = rows = total = 0
+    for sll, kvec, grid in calls:
+        x = sll.cuda()
+        kv = torch.as_tensor(kvec, dtype=torch.int64, device=x.device)
+        grid = x.shape[1] if grid is None else grid
+        cdf = redraw.posterior_cdf(x)
+        plain_cdf = redraw.posterior_cdf_reference(x)
+        exact = redraw.posterior_cdf_reference(x.double())
+        err_k = float((cdf.double() - exact).abs().max())
+        err_p = float((plain_cdf.double() - exact).abs().max())
+        draws = redraw.inverse_cdf_grid(x, kv, grid)
+        if not torch.equal(draws, redraw.grid_counts_reference(cdf, grid)[:, kv]):
+            fail(f"{label}: the redraw kernel's draws are not the grid counts of its own CDF")
+        if not err_k <= 2 * err_p:
+            fail(f"{label}: the redraw kernel's CDF is {err_k:.3e} from float64, more than "
+                 f"twice the plain float32 scan's {err_p:.3e}")
+        diff = draws != redraw.inverse_cdf_grid_reference(x, kv, grid)
+        moved += int(diff.sum())
+        rows += int(diff.any(dim=1).sum())
+        total += diff.numel()
+        worst = {"kernel": max(worst["kernel"], err_k), "plain": max(worst["plain"], err_p),
+                 "vs_plain": max(worst["vs_plain"], float((cdf - plain_cdf).abs().max()))}
+    say(f"{label}: redraw kernel on the chain's own inputs ({len(calls)} calls of "
+        f"{calls[0][0].shape[0]} x {calls[0][0].shape[1]}, grid {grid}): CDF max |kernel - f64| "
+        f"{worst['kernel']:.3e}, plain f32 cumsum's {worst['plain']:.3e} (at most twice), "
+        f"|kernel - plain| {worst['vs_plain']:.3e}; draws equal to the grid counts of its own CDF; "
+        f"draws that differ from the plain version's (knife edges) {moved} of {total} in {rows} "
+        f"rows ({smi})")
+    return {**worst, "draws_moved": moved, "rows_moved": rows, "draws": total}
+
+
+def redraw_rows_alone(sll, kvec, grid, label: str) -> None:
+    """The redraw kernel's rows of a (B >= 128, S) input at B = 1, 128 and
+    B, and under a row permutation, bit for bit (draws and CDF)."""
+    import torch
+
+    from gp_dla_detection_tpu_torch.ops import redraw
+
+    x = sll.cuda()
+    kv = torch.as_tensor(kvec, dtype=torch.int64, device=x.device)
+    whole, cdf = redraw.inverse_cdf_grid(x, kv, grid), redraw.posterior_cdf(x)
+    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(0)).to(x.device)
+    same = all(torch.equal(redraw.inverse_cdf_grid(x[r], kv, grid), whole[r])
+               and torch.equal(redraw.posterior_cdf(x[r]), cdf[r])
+               for r in (slice(0, 1), slice(5, 6), slice(0, 128), slice(x.shape[0] - 128, None),
+                         perm))
+    if not same:
+        fail(f"{label}: the redraw kernel's rows depend on the batch or the row order")
+
+
+def cddf_sums_check(args, label: str, smi: str) -> dict:
+    """The CDDF sums kernel on captured reducer inputs ``args`` (on the
+    card): within 1e-12 relative of the plain float64 version, the same
+    bits over three runs and for a row's batch of one and 128 rows."""
+    import torch
+
+    from gp_dla_detection_tpu_torch import cddf_inputs
+
+    runs = [cddf_inputs.cddf_sums(*args) for _ in range(3)]
+    acc, hist = runs[0]
+    if not all(torch.equal(a, acc) and torch.equal(h, hist) for a, h in runs[1:]):
+        fail(f"{label}: the CDDF sums kernel changed between three runs on the same inputs")
+    ref = cddf_inputs.cddf_sums_reference(*args)
+    rel = max(float(((got - want).abs() / want.abs().clamp(min=1e-300)).max())
+              for got, want in zip((acc, hist), ref))
+    abs_err = max(float((got - want).abs().max()) for got, want in zip((acc, hist), ref))
+    B = acc.shape[0]
+    rows = lambda r: [a[r] if torch.is_tensor(a) and a.dim() == 2 and a.shape[0] == B else a
+                      for a in args]
+    alone = all(torch.equal(x, y[r]) for r in (slice(3, 4), slice(0, min(B, 128)))
+                for x, y in zip(cddf_inputs.cddf_sums(*rows(r)), (acc, hist)))
+    say(f"{label}: CDDF sums kernel on the chain's own inputs ({B} x {acc.shape[1]}): vs the plain "
+        f"float64 scatter_add_ max rel {rel:.3e} (bound 1e-12), abs {abs_err:.3e}; bit-identical "
+        f"over three runs; rows alone at B=1 and 128 bit-identical {alone} ({smi})")
+    if not rel <= 1e-12:
+        fail(f"{label}: the CDDF sums kernel is {rel:.3e} from its plain version")
+    if not alone:
+        fail(f"{label}: the CDDF sums kernel's rows depend on the batch")
+    return {"max_rel_err": rel, "max_abs_err": abs_err}
+
+
+def capture_cddf_sums(log: list):
+    """A stand-in for ``cddf_inputs.cddf_sums`` that keeps (on the card)
+    the arguments of its first call in ``log`` and calls the real one."""
+    from gp_dla_detection_tpu_torch import cddf_inputs
+
+    real = cddf_inputs.cddf_sums
+
+    def spy(*args):
+        if not log:
+            log.append([a.clone() if hasattr(a, "clone") else a for a in args])
+        return real(*args)
+
+    return real, spy
 
 
 def bench_runs(argv_sets):
@@ -1997,8 +2194,9 @@ def bench_phase(smi: str, seed: int) -> dict:
             fail(f"phase 10: the bench's {name} line is not a finite rate from the kernels")
     chain_batches = 2 + 16384 // B
     expect = ((kernel_line, {"single": 6}),
-              (chain_line, {"single": chain_batches, "pair": chain_batches}),
-              (driver_line, {"single": 2 + 8192 // B, "pair": 0}))
+              (chain_line, {"single": chain_batches, "pair": chain_batches,
+                            "redraw": chain_batches}),
+              (driver_line, {"single": 2 + 8192 // B, "pair": 0, "redraw": 0}))
     if any(rec["launches"] != want for rec, want in expect):
         fail(f"phase 10: the bench's launches {[r['launches'] for r, _ in expect]}, expected "
              f"{[w for _, w in expect]}")
@@ -2094,17 +2292,23 @@ def bench_phase(smi: str, seed: int) -> dict:
         del full
     del kin, z2, n2, cols
 
-    # ---- the fused lean chain at batch 1024 against batch 128
+    # ---- the fused lean chain at batches 1024, 256 and 128, CDDF inputs on
+    from gp_dla_detection_tpu_torch import cddf_inputs
+    from gp_dla_detection_tpu_torch.parallel.sharded_inference import ShardedRunConfig
+    from gp_dla_detection_tpu_torch.ops import redraw
+
     work = bench.driver_workload(B, S, P, k)
-
     real = {"single": evidence.sample_log_likelihoods, "pair": evidence.sample_log_likelihoods_pair}
-
     real_redraw = sharded_multi.device_inverse_cdf_grid
 
-    def chain(batch):
-        """The chain's results and launches at ``batch``, each kernel's
-        tensor inputs over all its launches (rows stacked), and the base
-        redraw's calls (its (B, S) input on the host, its grid)."""
+    def chain(batch, sums_log=None):
+        """The chain's results and launches at ``batch`` (the bench's
+        workload through ``process_spectra_multi_sharded`` as ``bench
+        --driver --lean --two-stage`` runs it, with the CDDF inputs), each
+        evidence kernel's tensor inputs over all its launches (rows
+        stacked), and the base redraw's calls (its (B, S) input on the
+        host, its grid); ``sums_log``: keep the first CDDF sums call's
+        arguments there."""
         seen = {name: [] for name in real}
         redraws = []
 
@@ -2114,86 +2318,168 @@ def bench_phase(smi: str, seed: int) -> dict:
                 return real[name](*a, **kw)
             return call
 
-        def redraw(sll, kvec, grid_size=None):
-            redraws.append((sll.cpu(), kvec, grid_size))
+        def redraw_spy(sll, kvec, grid_size=None):
+            redraws.append((sll.cpu(), kvec.cpu(), grid_size))
             return real_redraw(sll, kvec, grid_size)
 
+        real_sums, sums_spy = capture_cddf_sums([] if sums_log is None else sums_log)
         evidence.sample_log_likelihoods, evidence.sample_log_likelihoods_pair = (
             spy("single"), spy("pair"))
-        sharded_multi.device_inverse_cdf_grid = redraw
-        evidence.launch_count = evidence.pair_launch_count = 0
+        sharded_multi.device_inverse_cdf_grid = redraw_spy
+        cddf_inputs.cddf_sums = sums_spy
+        reset_counts()
         try:
-            res = bench.run_driver(work, slice(0, B), None, per_device_batch=batch, lean=True,
-                                   two_stage=True)
+            res = sharded_multi.process_spectra_multi_sharded(
+                work.model, work.offsets, work.nhis, work.spectra.slice(slice(0, B)),
+                work.prior_z, work.prior_num,
+                config=ShardedRunConfig(per_device_batch=batch, dtype="float32",
+                                        store_sample_likelihoods=False, store_cddf_inputs=True),
+            )
+            launches = launch_counts()
         finally:
             evidence.sample_log_likelihoods, evidence.sample_log_likelihoods_pair = (
                 real["single"], real["pair"])
             sharded_multi.device_inverse_cdf_grid = real_redraw
+            cddf_inputs.cddf_sums = real_sums
         inputs = {name: [torch.cat(parts) for parts in zip(*calls)]
                   for name, calls in seen.items()}
-        return (result_arrays(res), (evidence.launch_count, evidence.pair_launch_count), inputs,
-                redraws)
+        return result_arrays(res), launches, inputs, redraws
 
-    big, big_launches, big_in, big_redraws = chain(B)
-    small, small_launches, small_in, small_redraws = chain(BATCH)
-    redraw_steps = redraw_divergence(big_redraws, small_redraws)
-    if big_launches != (1, 1) or small_launches != (B // BATCH, B // BATCH):
-        fail(f"phase 10: chain launches {big_launches} at batch {B}, {small_launches} at "
-             f"batch {BATCH}")
+    sums_args = []
+    runs = {batch: chain(batch, sums_args if batch == B else None) for batch in BENCH_CHAIN_BATCHES}
+    big, big_launches, big_in, big_redraws = runs[B]
+    for batch, (_, launches, _, _) in runs.items():
+        if launches != (B // batch,) * 5:
+            fail(f"phase 10: chain {COUNTED} launches {launches} at batch {batch}, expected "
+                 f"{B // batch} each")
     names = ("ext_wavelengths", "flux", "mu", "M", "omega2", "noise_variance", "mask",
              "z_dlas", "nhi", "z_dlas2", "nhi2")
-    # per kernel, each input that differs: (entries that differ, entries)
-    moved_inputs = {
-        name: {n: (int((x != y).sum()), x.numel())
-               for n, x, y in zip(names, big_in[name], small_in[name]) if not torch.equal(x, y)}
-        for name in real
-    }
     pick = lambda a: np.argmax(a["multi_model_posteriors"], axis=1)
-    picks_same = np.array_equal(pick(big), pick(small))
-    if same_bits(big, small):
-        verdict = "bit-identical"
-    else:
+    verdicts = {}
+    for batch in BENCH_CHAIN_BATCHES[1:]:
+        small, _, small_in, _ = runs[batch]
         diff = sorted(n for n in small if not np.array_equal(
             big[n], small[n], equal_nan=small[n].dtype.kind == "f"))
-        ev_err = max(
-            normalized_error(torch.as_tensor(np.nan_to_num(big[n])),
-                             torch.as_tensor(np.nan_to_num(small[n])))[0]
-            for n in ("log_likelihoods_no_dla", "log_likelihoods_dla", "multi_log_likelihoods_dla2"))
-        p_small, p_big = small["p_dlas"], big["p_dlas"]
-        hard = int((((p_small > 0.9) != (p_big > 0.9))
-                    & (np.abs(p_small - 0.9) > DECISION_MARGIN)).sum())
-        p99 = float(np.quantile(np.abs(p_big - p_small), 0.99))
-        # the reason: the kernels' inputs that differ between the batches
-        # (the kernels' rows do not depend on the batch, above) and, where
-        # the base draws do, the redraw's first op whose output moves
-        reasons = [f"the {name} kernel's "
-                   + ", ".join(f"{n} in {c} of {total} entries" for n, (c, total) in moved.items())
-                   + " differ between the batches" for name, moved in moved_inputs.items() if moved]
-        first = next(((op, c) for op, c in redraw_steps.items() if c[0]), None)
-        if moved_inputs["pair"] and first is not None and first[0] == "input":
-            reasons.append(f"the base redraw's input differs in {first[1][0]} entries")
-        elif moved_inputs["pair"] and first is not None:
-            reasons.append(
-                f"the base redraw's input is bit-identical at both batches, and the first of "
-                f"its ops whose output depends on the batch is {first[0]} ({first[1][0]} "
-                f"entries in {first[1][1]} rows)")
-        reason = "; ".join(reasons) or "no kernel input differs: the reductions after the kernels"
-        verdict = (f"not bit-identical ({', '.join(diff)} differ: {reason}); evidences "
-                   f"normalized {ev_err:.3e}, flips outside margin {hard}, |dp| p99 {p99:.3e}")
-        if not ev_err < NORMALIZED_BOUND or hard or not p99 < DECISION_P99:
-            fail(f"phase 10: the chain at batch {B} fails the kernel bound or the decision "
-                 f"gate against batch {BATCH}")
-    say(f"phase 10: the base redraw replayed op by op on the inputs the chain gave it, batch "
-        f"{B} vs {BATCH} rows per call, (entries, rows) that differ: {redraw_steps}")
-    say(f"phase 10: fused lean chain (R=4) on the bench's first {B} spectra, batch {B} "
-        f"vs batch {BATCH}: {verdict}; kernel inputs that differ {moved_inputs}; 3-class picks equal "
-        f"{picks_same} (picks {np.bincount(pick(big), minlength=3).tolist()}); launches "
-        f"{big_launches} and {small_launches} ({smi})")
-    if not picks_same:
-        fail(f"phase 10: the chain's picks at batch {B} differ from batch {BATCH}")
+        # the kernels' inputs that differ between the batches: the reason
+        # when an array does
+        moved_inputs = {
+            name: {n: (int((x != y).sum()), x.numel())
+                   for n, x, y in zip(names, big_in[name], small_in[name]) if not torch.equal(x, y)}
+            for name in real
+        }
+        verdicts[batch] = ("bit-identical in every array (CDDF inputs included)" if not diff
+                           else f"differs in {', '.join(diff)}; kernel inputs that differ "
+                                f"{moved_inputs}")
+        say(f"phase 10: fused lean chain (cuda, R=4, CDDF inputs) on the bench's first {B} spectra, "
+            f"batch {B} vs batch {batch}: {verdicts[batch]}; 3-class picks equal "
+            f"{np.array_equal(pick(big), pick(small))} (picks {np.bincount(pick(big), minlength=3).tolist()}); "
+            f"launches {COUNTED} {big_launches} and {runs[batch][1]} ({smi})")
+        if diff:
+            fail(f"phase 10: the chain at batch {B} is not bit-identical to batch {batch}")
+    # the plain redraw (backend="torch") replayed op by op on the inputs the
+    # chain gave the kernel: where its own result depends on the batch
+    redraw_steps = redraw_divergence(big_redraws, runs[BATCH][3])
+    say(f"phase 10: the plain redraw (the backend=\"torch\" path) replayed op by op on the chain's "
+        f"inputs, batch {B} vs {BATCH} rows per call, (entries, rows) that differ: {redraw_steps}")
+
+    # ---- the redraw kernel on the bench's inputs (R = 4): its checks, its
+    # rows at B = 1, 128 and 1024, its time beside the plain sequence's
+    x, kv, grid = big_redraws[0]
+    redraw_bench = redraw_check(big_redraws, "phase 10", smi)
+    redraw_rows_alone(x, kv, grid, "phase 10")
+    x, kv = x.cuda(), kv.cuda()
+    redraw_b = (cuda_ms(lambda: redraw.inverse_cdf_grid(x, kv, grid), 10),
+                cuda_ms(lambda: redraw.inverse_cdf_grid_reference(x, kv, grid), 10),
+                cuda_ms(lambda: redraw.inverse_cdf_grid(x, kv, grid), 10))
+    redraw_b_bound = redraw_bound(*x.shape, kv.numel())
+    say(f"phase 10: redraw kernel at B={x.shape[0]} S={x.shape[1]} grid {grid}: "
+        f"{redraw_b[0]:.4f} / {redraw_b[2]:.4f} ms, the plain sequence {redraw_b[1]:.4f} ms; bound "
+        f"{redraw_b_bound[0]:.4f} ms by {redraw_b_bound[1]} ({redraw_b_bound[0] / redraw_b[0]:.2f} "
+        f"of it reached); rows bit-identical at B=1, 128 and {x.shape[0]} and permuted ({smi})")
+    del x, kv
+
+    # ---- the CDDF sums kernel on the chain's own inputs at B = 1024 and on
+    # its first 128 rows: its checks and its time beside the plain sums'
+    args = sums_args[0]
+    sums_bench = cddf_sums_check(args, "phase 10", smi)
+    rows = lambda n: [a[:n] if torch.is_tensor(a) and a.dim() == 2 else a for a in args]
+    n_bins = args[-2] * (args[-1] + 1) + 1
+    sums_times, sums_bounds = {}, {}
+    for n in (BATCH, B):
+        part = rows(n)
+        sums_times[n] = (cuda_ms(lambda: cddf_inputs.cddf_sums(*part), 10),
+                         cuda_ms(lambda: cddf_inputs.cddf_sums_reference(*part), 5),
+                         cuda_ms(lambda: cddf_inputs.cddf_sums(*part), 10))
+        sums_bounds[n] = cddf_bound(n, S, n_bins)
+        say(f"phase 10: CDDF sums kernel at B={n} S={S} ({cddf_inputs.N_CHANNELS} x {n_bins} bins): "
+            f"{sums_times[n][0]:.4f} / {sums_times[n][2]:.4f} ms, the plain scatter_add_ sums "
+            f"{sums_times[n][1]:.4f} ms; bound {sums_bounds[n][0]:.4f} ms by {sums_bounds[n][1]} "
+            f"({sums_bounds[n][0] / sums_times[n][0]:.2f} of it reached) ({smi})")
+    del args, sums_args, runs, big_in, big_redraws
+
+    # ---- the null evidence kernel on the bench's spectra: against its
+    # plain version and float64, each row alone, shifted and permuted, its
+    # time at B = 128 and 1024 beside the plain sequence's
+    from gp_dla_detection_tpu_torch.inference import _prepare_spectrum
+    from gp_dla_detection_tpu_torch.ops import low_rank_mvn
+
+    dev = torch.device("cuda")
+    t32 = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(torch.float32)
+    prep = _prepare_spectrum(
+        t32(prob["wavelengths"]), t32(prob["flux"]), t32(prob["noise_variance"]),
+        torch.as_tensor(prob["mask"], device=dev), t32(prob["z_qso"]), t32(prob["grid"]),
+        t32(prob["mu"]), t32(prob["M"]), t32(prob["log_omega"]), prob["log_c_0"],
+        prob["log_tau_0"], prob["log_beta"], params, null_evidence=False,
+    )
+    null_args = [t32(prob["flux"]), prep["mu"], prep["M"],
+                 prep["omega2"] + t32(prob["noise_variance"]), prep["valid"]]
+    del prep
+    null_out = low_rank_mvn.null_log_likelihoods(*null_args)
+    null_plain = low_rank_mvn.null_log_likelihoods_reference(*null_args)
+    null_f64 = low_rank_mvn.null_log_likelihoods_reference(
+        *[a.double() if a.is_floating_point() else a for a in null_args])
+    null_err = normalized_error(null_out, null_plain)
+    null_err64 = normalized_error(null_out, null_f64)
+    plain_err64 = normalized_error(null_plain, null_f64)
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(1)).to(dev)
+    moves = lambda fn, ref: sum(int((fn(*[a[r] for a in null_args]) != ref[r]).sum())
+                                for r in (slice(0, 1), slice(1, 2), slice(0, BATCH),
+                                          slice(1, 257), slice(256, 512), perm))
+    null_moved = moves(low_rank_mvn.null_log_likelihoods, null_out)
+    plain_moved = moves(low_rank_mvn.null_log_likelihoods_reference, null_plain)
+    null_times, null_bounds = {}, {}
+    for n in (BATCH, B):
+        part = [a[:n] for a in null_args]
+        null_times[n] = (cuda_ms(lambda: low_rank_mvn.null_log_likelihoods(*part), 10),
+                         cuda_ms(lambda: low_rank_mvn.null_log_likelihoods_reference(*part), 5),
+                         cuda_ms(lambda: low_rank_mvn.null_log_likelihoods(*part), 10))
+        null_bounds[n] = null_bound(n, P, k)
+    say(f"phase 10: null evidence kernel on the bench's {B} spectra (P={P}, k={k}): vs plain f32 "
+        f"normalized {null_err[0]:.3e}, abs {null_err[1]:.3e}; vs f64 normalized {null_err64[0]:.3e} "
+        f"(plain f32 {plain_err64[0]:.3e}); rows at B=1, 128, 256 shifted by one and permuted that "
+        f"differ from the B={B} launch: kernel {null_moved}, plain version {plain_moved}; "
+        + "; ".join(f"B={n}: {null_times[n][0]:.4f} / {null_times[n][2]:.4f} ms, the plain "
+                    f"sequence {null_times[n][1]:.4f} ms, bound {null_bounds[n][0]:.4f} ms by "
+                    f"{null_bounds[n][1]}" for n in (BATCH, B))
+        + f" ({smi})")
+    if not null_err[0] < NORMALIZED_BOUND or not null_err64[0] < F64_BOUND:
+        fail(f"phase 10: the null evidence kernel disagrees with its plain version "
+             f"({null_err[0]:.3e}) or float64 ({null_err64[0]:.3e})")
+    if null_moved:
+        fail(f"phase 10: the null evidence kernel's rows depend on the batch ({null_moved})")
+    del null_args, null_out, null_plain, null_f64
     say("phase 10 ok")
     return {"kernel_line": kernel_line, "chain_line": chain_line, "driver_line": driver_line,
-            "sweep": sweep, "kernels": kernels}
+            "sweep": sweep, "kernels": kernels, "chain_launches": big_launches,
+            "redraw": {**redraw_bench, "ms": redraw_b[0], "ms_2": redraw_b[2],
+                       "plain_ms": redraw_b[1], "bound_ms": redraw_b_bound[0],
+                       "bound_by": redraw_b_bound[1]},
+            "sums": {**sums_bench, "times": sums_times, "bounds": sums_bounds},
+            "null": {"max_abs_err": null_err[1], "max_normalized_err": null_err[0],
+                     "normalized_err_vs_f64": null_err64[0],
+                     "plain_normalized_err_vs_f64": plain_err64[0],
+                     "plain_rows_moved": plain_moved, "times": null_times,
+                     "bounds": null_bounds}}
 
 
 def kernel_inputs(w, params, offsets, nhis, n, device, dtype, num_lines=3):
@@ -2245,7 +2531,7 @@ def main() -> None:
         from gp_dla_detection_tpu_torch import _build
         from gp_dla_detection_tpu_torch.inference import compute_sample_window, process_spectra
         from gp_dla_detection_tpu_torch.models.qso_model import GPModel
-        from gp_dla_detection_tpu_torch.ops import evidence
+        from gp_dla_detection_tpu_torch.ops import evidence, redraw
         from gp_dla_detection_tpu_torch.ops.low_rank_mvn import full_fp32_matmul
     except ImportError as exc:
         fail(f"the port is not importable beside this script: {exc}")
@@ -2264,15 +2550,22 @@ def main() -> None:
     say(f"phase 1 ok: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     full_fp32_matmul()
 
-    # ---- phase 2: build
+    # ---- phase 2: build every kernel source, one nvcc each, all at once
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = {name: pool.submit(_build.load_library, name) for name in KERNEL_SOURCES}
     try:
-        built = _build.load_library("evidence")
+        libs = {name: job.result() for name, job in builds.items()}
     except RuntimeError as exc:
         fail(f"kernel build failed: {exc}")
+    built = libs["evidence"]
     say(
-        f"phase 2 ok: built {built.path.name} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {built.build_seconds:.1f} s); k=20: {kernel_report(built.compiler_report, 20)}"
+        f"phase 2 ok: built {', '.join(lib.path.name for lib in libs.values())} in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc "
+        + ", ".join(f"{name} {lib.build_seconds:.1f} s" for name, lib in libs.items())
+        + f", side by side); evidence k=20: {kernel_report(built.compiler_report, 20)}; "
+        + "; ".join(f"{name}: {ptxas_usage(libs[name].compiler_report)}"
+                    for name in KERNEL_SOURCES[1:])
     )
 
     # ---- phase 3: kernel vs plain version at production shapes
@@ -2508,11 +2801,12 @@ def main() -> None:
     spectra2 = dataclasses.replace(spectra, flux=inject_second_dlas(w, params, args.seed))
     prior_num = np.where(prior_flags, rng.choice([1, 1, 1, 2], len(prior_flags)), 0)
 
-    # observe what the pair kernel receives and what the pair reduction
-    # sees, without changing either
-    seen = {"pattern_ok": [], "has_valid": []}
+    # observe what the pair kernel receives, what the pair reduction sees
+    # and what the redraw is given, without changing any of them
+    seen = {"pattern_ok": [], "has_valid": [], "redraws": []}
     kernel_pair = evidence.sample_log_likelihoods_pair
     reduce_pair = sharded_multi.pack_lean_pair
+    kernel_redraw = sharded_multi.device_inverse_cdf_grid
 
     def pair_spy(*a, **kw):
         z2_cols = a[9]
@@ -2525,9 +2819,14 @@ def main() -> None:
         seen["has_valid"].append(torch.isfinite(pair_lls).any(dim=1))
         return reduce_pair(pair_lls, base_inds)
 
+    def redraw_spy(sll, kvec, grid_size=None):
+        seen["redraws"].append((sll.cpu(), kvec.cpu(), grid_size))
+        return kernel_redraw(sll, kvec, grid_size)
+
     def lean(R, spy=False, loop=None, strict=False):
         evidence.sample_log_likelihoods_pair = pair_spy if spy else kernel_pair
         sharded_multi.pack_lean_pair = reduce_spy if spy else reduce_pair
+        sharded_multi.device_inverse_cdf_grid = redraw_spy if spy else kernel_redraw
         try:
             with strict_issue(sharded_multi) if strict else contextlib.nullcontext():
                 torch.cuda.synchronize()
@@ -2544,6 +2843,7 @@ def main() -> None:
         finally:
             evidence.sample_log_likelihoods_pair = kernel_pair
             sharded_multi.pack_lean_pair = reduce_pair
+            sharded_multi.device_inverse_cdf_grid = kernel_redraw
 
     loops = {   # (pipeline depth, upload thread): the loop's keywords
         (1, False): SERIAL, (2, False): {"pipeline_depth": 2, "dispatch_thread": False},
@@ -2573,12 +2873,11 @@ def main() -> None:
     cold4, cold_split = profile_split(lambda: lean(None)[0])
     # the main path, timed, with nothing observing it: the defaults, 4
     # batches in flight and the uploads on a side thread
-    evidence.launch_count = 0
-    evidence.pair_launch_count = 0
+    reset_counts()
     lean4, lean_s = lean(None)
-    lean_launches = (evidence.launch_count, evidence.pair_launch_count)
-    if lean_launches != (n_batches, n_batches):
-        fail(f"lean chain: {lean_launches} (single, pair) launches for {n_batches} batches")
+    lean_launches = launch_counts()
+    if lean_launches != (n_batches, n_batches, n_batches, 0, n_batches):
+        fail(f"lean chain: {lean_launches} {COUNTED} launches for {n_batches} batches")
     if not same_bits(result_arrays(cold4), result_arrays(lean4)):
         fail("lean chain: the profiled first run differs from the main path's")
     secs4 = depths(None, lean4, lean_s, list(loops), 3)
@@ -2607,7 +2906,7 @@ def main() -> None:
     lean_rate = len(spectra2) / lean_s
     say(f"phase 6: process_spectra_multi_lean (defaults: cuda, float32, the kernels, R=4, "
         f"pipeline depth 4, upload thread): {len(spectra2)} spectra x {S} samples in "
-        f"{lean_s:.3f} s = {lean_rate:.1f} spectra/s; launches (single, pair) "
+        f"{lean_s:.3f} s = {lean_rate:.1f} spectra/s; launches {COUNTED} "
         f"{lean_launches} for {n_batches} batches; launches x phase-5 kernel ms = "
         f"{n_batches * (single_ms_same_call + pair_ms) / 1e3 / lean_s:.2f} of the wall time; "
         f"R=4 layout held on every batch; 3-class picks {picks.tolist()}; rows without a "
@@ -2627,12 +2926,28 @@ def main() -> None:
         say(f"phase 6: host ops (every thread) that took most more time in the first pipelined "
             f"run than in the warm one: {cold_cost(cold_split, warm_split)}")
 
-    evidence.launch_count = 0
-    evidence.pair_launch_count = 0
+    # the redraw kernel on the inputs the chain gave it (the observed run),
+    # and its time at the chain's batch beside the plain sequence's
+    redraw6 = redraw_check(seen["redraws"], "phase 6", smi)
+    redraw_rows_alone(torch.cat([c[0] for c in seen["redraws"]]), *seen["redraws"][0][1:],
+                      "phase 6")
+    x6, kv6, grid6 = seen["redraws"][0]
+    x6, kv6 = x6.cuda(), kv6.cuda()
+    redraw_times = {128: (cuda_ms(lambda: redraw.inverse_cdf_grid(x6, kv6, grid6), 20),
+                          cuda_ms(lambda: redraw.inverse_cdf_grid_reference(x6, kv6, grid6), 20),
+                          cuda_ms(lambda: redraw.inverse_cdf_grid(x6, kv6, grid6), 20))}
+    redraw_bounds = {128: redraw_bound(*x6.shape, kv6.numel())}
+    say(f"phase 6: redraw kernel at B={x6.shape[0]} S={x6.shape[1]} grid {grid6}: "
+        f"{redraw_times[128][0]:.4f} / {redraw_times[128][2]:.4f} ms, the plain sequence "
+        f"{redraw_times[128][1]:.4f} ms; bound {redraw_bounds[128][0]:.4f} ms by "
+        f"{redraw_bounds[128][1]}; rows bit-identical at B=1, 128 and permuted ({smi})")
+    del x6, kv6, seen["redraws"]
+
+    reset_counts()
     lean1, lean1_s = lean(1)
-    launches1 = (evidence.launch_count, evidence.pair_launch_count)
-    if launches1 != (n_batches, n_batches):
-        fail(f"lean chain (R=1): {launches1} (single, pair) launches for {n_batches} batches")
+    launches1 = launch_counts()
+    if launches1 != (n_batches, n_batches, n_batches, 0, n_batches):
+        fail(f"lean chain (R=1): {launches1} {COUNTED} launches for {n_batches} batches")
     secs1 = depths(1, lean1, lean1_s, [(1, False), (4, True)], 3)
     say(f"phase 6: R=1: {len(spectra2)} spectra in {lean1_s:.3f} s = "
         f"{len(spectra2) / lean1_s:.1f} spectra/s; launches {launches1}; in turns, spectra/s: "
@@ -2767,6 +3082,84 @@ def main() -> None:
             "b1024_rows_equal_b128": bk["pair"]["rows_equal_b128"],
             "max_normalized_err_b1024_bench": bk["pair"]["max_normalized_err"],
             "bench_lines": [bp["kernel_line"], bp["chain_line"], bp["driver_line"]],
+            "card": smi,
+        },
+        {
+            "name": "redraw_f32",
+            "route": "cuda",
+            "source": "gp_dla_detection_tpu_torch/csrc/redraw.cu",
+            "replaces": "gp_dla_detection_tpu/multi_dla.py:219 (device_inverse_cdf_grid, XLA: "
+                        "no TPU kernel; the port's plain torch.cumsum sequence)",
+            "launches": lean_launches[2] + rl["multi"][2] + bp["chain_line"]["launches"]["redraw"],
+            "launches_lean_chain": lean_launches[2],
+            "launches_release_multi": rl["multi"][2],
+            "launches_bench_default": bp["chain_line"]["launches"]["redraw"],
+            "launches_per_batch": {"lean_chain": lean_launches[2] / n_batches,
+                                   "multi": rl["multi"][2] / rb},
+            "max_abs_err": max(redraw6["vs_plain"], bp["redraw"]["vs_plain"]),
+            "max_abs_err_of": "the CDF against the plain float32 cumsum's",
+            "cdf_err_vs_f64": max(redraw6["kernel"], bp["redraw"]["kernel"]),
+            "plain_cdf_err_vs_f64": max(redraw6["plain"], bp["redraw"]["plain"]),
+            "draws_differing_from_plain": [redraw6["draws_moved"], bp["redraw"]["draws_moved"]],
+            "rows_differing_from_plain": [redraw6["rows_moved"], bp["redraw"]["rows_moved"]],
+            "ms": redraw_times[128][0],
+            "plain_ms": redraw_times[128][1],
+            "bound_ms": redraw_bounds[128][0],
+            "bound_by": redraw_bounds[128][1],
+            "library_ms": None,
+            "ms_b1024": bp["redraw"]["ms"],
+            "plain_ms_b1024": bp["redraw"]["plain_ms"],
+            "bound_ms_b1024": bp["redraw"]["bound_ms"],
+            "card": smi,
+        },
+        {
+            "name": "cddf_sums_f64",
+            "route": "cuda",
+            "source": "gp_dla_detection_tpu_torch/csrc/cddf.cu",
+            "replaces": "gp_dla_detection_tpu/cddf_inputs.py:444 (the reducer's acc.at[].add and "
+                        "masked products, XLA: no TPU kernel; the port's plain scatter_add_ sums)",
+            "launches": rl["multi"][3] + bp["chain_launches"][3],
+            "launches_release_multi": rl["multi"][3],
+            "launches_bench_chain_b1024": bp["chain_launches"][3],
+            "launches_per_batch": {"multi": rl["multi"][3] / rb},
+            "max_abs_err": bp["sums"]["max_abs_err"],
+            "max_rel_err": bp["sums"]["max_rel_err"],
+            "ms": bp["sums"]["times"][BATCH][0],
+            "plain_ms": bp["sums"]["times"][BATCH][1],
+            "bound_ms": bp["sums"]["bounds"][BATCH][0],
+            "bound_by": bp["sums"]["bounds"][BATCH][1],
+            "library_ms": None,
+            "ms_b1024": bp["sums"]["times"][BENCH_BATCH][0],
+            "plain_ms_b1024": bp["sums"]["times"][BENCH_BATCH][1],
+            "bound_ms_b1024": bp["sums"]["bounds"][BENCH_BATCH][0],
+            "card": smi,
+        },
+        {
+            "name": "null_evidence_f32",
+            "route": "cuda",
+            "source": "gp_dla_detection_tpu_torch/csrc/null_evidence.cu",
+            "replaces": "gp_dla_detection_tpu/ops/low_rank_mvn.py:141 (log_mvnpdf_low_rank, XLA: "
+                        "no TPU kernel; the port's plain torch.sum / matmul / Cholesky sequence)",
+            "launches": lean_launches[4] + rl["process"][4] + rl["multi"][4] + bp["chain_launches"][4],
+            "launches_lean_chain": lean_launches[4],
+            "launches_release_process": rl["process"][4],
+            "launches_release_multi": rl["multi"][4],
+            "launches_bench_chain_b1024": bp["chain_launches"][4],
+            "launches_per_batch": {"lean_chain": lean_launches[4] / n_batches,
+                                   "process": rl["process"][4] / rb, "multi": rl["multi"][4] / rb},
+            "max_abs_err": bp["null"]["max_abs_err"],
+            "max_normalized_err": bp["null"]["max_normalized_err"],
+            "normalized_err_vs_f64": bp["null"]["normalized_err_vs_f64"],
+            "plain_normalized_err_vs_f64": bp["null"]["plain_normalized_err_vs_f64"],
+            "plain_rows_moved_with_the_batch": bp["null"]["plain_rows_moved"],
+            "ms": bp["null"]["times"][BATCH][0],
+            "plain_ms": bp["null"]["times"][BATCH][1],
+            "bound_ms": bp["null"]["bounds"][BATCH][0],
+            "bound_by": bp["null"]["bounds"][BATCH][1],
+            "library_ms": None,
+            "ms_b1024": bp["null"]["times"][BENCH_BATCH][0],
+            "plain_ms_b1024": bp["null"]["times"][BENCH_BATCH][1],
+            "bound_ms_b1024": bp["null"]["bounds"][BENCH_BATCH][0],
             "card": smi,
         },
     ]}))

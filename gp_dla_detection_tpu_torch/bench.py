@@ -289,7 +289,7 @@ def main_driver(n_spectra: int = 8192, per_device_batch: int = 1024,
     per batch, everything a survey run pays.  The kernel mode (:func:`main`)
     and this mode bracket the system: the kernel loop is the device's
     ceiling, the driver what a user sustains."""
-    from .ops import evidence
+    from .ops import evidence, redraw
     from .parallel.mesh import DATA_AXIS, is_coordinator, make_mesh, rank_device
     from .runtime import resolve_run
 
@@ -307,7 +307,7 @@ def main_driver(n_spectra: int = 8192, per_device_batch: int = 1024,
 
     if resolved.type == "cuda":
         torch.cuda.reset_peak_memory_stats(resolved)
-    counts = lambda: (evidence.launch_count, evidence.pair_launch_count)
+    counts = lambda: (evidence.launch_count, evidence.pair_launch_count, redraw.launch_count)
     before = counts()
     with tempfile.TemporaryDirectory() as tmp:
         # warm-up: one batch pays the first launches, lazy module loading
@@ -322,14 +322,16 @@ def main_driver(n_spectra: int = 8192, per_device_batch: int = 1024,
         t0 = time.perf_counter()
         res = run(n_spectra, f"{tmp}/ckpt" if checkpoint else None)
         t_long = time.perf_counter() - t0
-    single, pair = (c - b for c, b in zip(counts(), before))
+    single, pair, redraws = (c - b for c, b in zip(counts(), before))
     if backend == "cuda":
         super_batch = per_device_batch * mesh.shape[DATA_AXIS]
         batches = 2 + -(-n_spectra // super_batch)
-        if single != batches or (two_stage and (pair < 1 or (lean and pair != batches))):
+        chain = two_stage and lean
+        if single != batches or (two_stage and (pair < 1 or (chain and pair != batches))) \
+                or redraws != (batches if chain else 0):
             raise RuntimeError(
-                f"the driver mode made {single} single and {pair} pair kernel "
-                f"launches for {batches} batches"
+                f"the driver mode made {single} single, {pair} pair and {redraws} redraw "
+                f"kernel launches for {batches} batches"
             )
     single_res = getattr(res, "single", res)
     bad = ~np.isfinite(single_res.log_likelihoods_dla)
@@ -351,7 +353,7 @@ def main_driver(n_spectra: int = 8192, per_device_batch: int = 1024,
         "mesh_chips": n_cards,
         "first_batch_s": round(t_short, 2),
         "full_run_s": round(t_long, 2),
-        "launches": {"single": single, "pair": pair},
+        "launches": {"single": single, "pair": pair, "redraw": redraws},
         "peak_memory_gb": _peak_memory_gb(resolved),
         "vs_baseline": round(value / BASELINE_SPECTRA_PER_SEC_PER_CARD, 2),
     })

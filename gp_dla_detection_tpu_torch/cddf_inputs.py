@@ -17,18 +17,30 @@ per batch, everything those statistics consume:
 The host side (the channel layout, :class:`CDDFReductionSpec` and
 :class:`CDDFInputs`) is a copy of the JAX package's, held equal to it by
 the tests; the quantization contract is the JAX module's docstring.
-The device side, :func:`make_cddf_reducer`, is plain torch in float64
-(inputs of a float32 run upcast, results returned at the run dtype): one
-``scatter_add_`` over the flat index ``zloc * (n_lnhi + 1) + lnhi_bin``
-where the JAX package runs one masked matmul per z bin, and a stable
-descending sort where it runs ``lax.top_k``, so that ties (every row
-with fewer than top_k non-zero p) keep the lower index first, as
-``lax.top_k`` orders them.
+The device side, :func:`make_cddf_reducer`, runs in float64 (inputs of
+a float32 run upcast, results returned at the run dtype): a stable
+descending sort where the JAX package runs ``lax.top_k``, so that ties
+(every row with fewer than top_k non-zero p) keep the lower index first,
+as ``lax.top_k`` orders them, and its two sums, the second-DLA masses
+gathered onto their base samples and every channel's masses binned on
+the (z, log N_HI) grids, in :func:`cddf_sums`:
+
+- :func:`cddf_sums` is the wrapper.  On CUDA tensors it launches
+  ``csrc/cddf.cu``, which adds in a fixed order, so that a row's sums
+  depend on that row alone in every run, or raises; on CPU tensors it
+  runs the plain version.  It never falls back on the card.
+- :func:`cddf_sums_reference` is the plain version: two ``scatter_add_``
+  over the base samples and over the flat index ``zloc * (n_lnhi + 1) +
+  lnhi_bin``, where the JAX package runs one masked matmul per z bin.
+  On the card their atomics add in an order that changes from run to run.
+- ``launch_count`` counts the kernel launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import json
 import math
 
@@ -38,6 +50,9 @@ import torch
 __all__ = [
     "CDDFReductionSpec",
     "CDDFInputs",
+    "cddf_sums",
+    "cddf_sums_reference",
+    "launch_count",
     "make_cddf_reducer",
 ]
 
@@ -54,6 +69,8 @@ CH_SMALL_B = 5      # sum p,         small,           grid B
 CH_SMALL2_A = 6     # sum p2,        small, 2nd DLA,  grid A (by base z/N)
 CH_SMALL2_B = 7     # sum p2,        small, 2nd DLA,  grid B
 N_CHANNELS = 8
+
+launch_count = 0   # cddf_sums kernel launches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,12 +284,136 @@ def _top_k(x, k: int):
     return vals[:, :k], idx[:, :k]
 
 
+def cddf_sums_reference(
+    p, p2s, base, zloc, base_order, lh_a, lh_b, nu, nu2,
+    p_sample_min: float, p_switch: float, n_z_window: int, n_lnhi: int,
+):
+    """The plain version of :func:`cddf_sums` (``base_order`` unused)."""
+    B, S = p.shape
+    W, nl = n_z_window, n_lnhi
+    zero = torch.zeros((), dtype=torch.float64, device=p.device)
+    small1 = (p > p_sample_min) & (p < p_switch)
+    ps = torch.where(small1, p, zero)
+    # a posterior on one sample gives p = 1 + 1 ulp, and a negative
+    # variance there a NaN Omega_DLA error bar: the Bernoulli variance
+    # is clamped at 0 (the JAX package's is not)
+    pvar = p * torch.clamp(1.0 - p, min=0.0)
+    acc = torch.zeros((B, S), dtype=torch.float64, device=p.device)
+    acc.scatter_add_(1, base, p2s)
+    # every channel's masses in one scatter over the flat (z, lnhi)
+    # index; samples outside the window go to a slot that is dropped
+    vals = torch.stack([ps, p, p * nu, pvar, pvar * nu2, ps, acc, acc], dim=1)  # (B, 8, S)
+    ch = torch.arange(N_CHANNELS, device=p.device)
+    grid_b = (ch == CH_SMALL_B) | (ch == CH_SMALL2_B)   # the grids each channel bins on
+    lh = torch.where(grid_b[:, None], lh_b[None, :], lh_a[None, :])  # (8, S)
+    flat = zloc[:, None, :] * (nl + 1) + lh[None, :, :]
+    dump = W * (nl + 1)
+    in_win = (zloc >= 0) & (zloc < W)
+    flat = torch.where(in_win[:, None, :], flat, torch.full_like(flat, dump))
+    hist = torch.zeros((B, N_CHANNELS, dump + 1), dtype=torch.float64, device=p.device)
+    hist.scatter_add_(2, flat, vals)
+    return acc, hist
+
+
+def cddf_sums(
+    p, p2s, base, zloc, base_order, lh_a, lh_b, nu, nu2,
+    p_sample_min: float, p_switch: float, n_z_window: int, n_lnhi: int,
+):
+    """The reduction's two float64 sums for one batch.
+
+    Args (float64 unless said): p (B, S) the first-DLA sample
+      probabilities; p2s (B, S) the small second-DLA probabilities of the
+      pair columns; base (B, S) int64 each pair column's base sample;
+      zloc (B, S) int64 each sample's z row in the window (outside
+      [0, n_z_window): the dump slot); base_order (S,) int64 the pair
+      columns by ascending (grid position, column); lh_a, lh_b (S,) int64
+      each sample's log N_HI bin on grid A and B (n_lnhi: the row's dump
+      bin); nu, nu2 (S,).
+
+    Returns ``(acc, hist)``: acc (B, S), the p2s of the pair columns on
+    each base sample; hist (B, 8, n_z_window (n_lnhi + 1) + 1), the CH_*
+    channels' masses binned, the last slot the dump.
+
+    CUDA tensors: ``csrc/cddf.cu``.  It adds each acc entry's columns in
+    ``base_order`` (in one run each when ``base`` ascends along it, as the
+    redraw's bases do) and each bin's samples in ascending order, so the
+    result does not depend on the batch or the run; anything it cannot
+    take (another dtype, shape or device, a grid whose bins exceed shared
+    memory) raises, as does a failed build or launch, and a base outside
+    [0, S) stops the kernel, as an index outside a tensor does in PyTorch.
+    CPU tensors: :func:`cddf_sums_reference`.
+    """
+    args = (p, p2s, base, zloc, base_order, lh_a, lh_b, nu, nu2,
+            p_sample_min, p_switch, n_z_window, n_lnhi)
+    if not p.is_cuda:
+        return cddf_sums_reference(*args)
+    B, S = p.shape
+    W, nl = n_z_window, n_lnhi
+    shapes = ((p, (B, S), torch.float64), (p2s, (B, S), torch.float64),
+              (base, (B, S), torch.int64), (zloc, (B, S), torch.int64),
+              (base_order, (S,), torch.int64), (lh_a, (S,), torch.int64),
+              (lh_b, (S,), torch.int64), (nu, (S,), torch.float64), (nu2, (S,), torch.float64))
+    for t, shape, dtype in shapes:
+        if t.device != p.device or tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(
+                f"the CUDA CDDF sums take {shape} {dtype} tensors on {p.device}; got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+    if not 1 <= S < 1 << 31 or B > (1 << 31) - 1:
+        raise ValueError(f"(B, S) = {(B, S)} outside the kernel's grid")
+    built = _sums_library()
+    with torch.cuda.device(p.device):
+        need = built.lib.gpdla_cddf_shared_bytes(W, nl)
+        room = built.lib.gpdla_cddf_max_shared_bytes()
+    if need > room:
+        raise ValueError(
+            f"the CUDA CDDF sums hold a row's {N_CHANNELS} x {W * (nl + 1) + 1} bins in "
+            f"shared memory: {need} bytes, beyond the {room} a block may take"
+        )
+    acc = torch.empty((B, S), dtype=torch.float64, device=p.device)
+    hist = torch.empty((B, N_CHANNELS, W * (nl + 1) + 1), dtype=torch.float64, device=p.device)
+    if B:
+        tensors = [t.contiguous() for t, _, _ in shapes]
+        with torch.cuda.device(p.device):
+            stream = torch.cuda.current_stream(p.device).cuda_stream
+            err = built.lib.gpdla_cddf_sums_f64(
+                *[t.data_ptr() for t in tensors], acc.data_ptr(), hist.data_ptr(), B, S, W, nl,
+                float(p_sample_min), float(p_switch), stream,
+            )
+        if err != 0:
+            msg = built.lib.gpdla_cddf_error_string(err).decode()
+            raise RuntimeError(f"CDDF sums kernel launch failed: {msg} (cudaError {err})")
+        global launch_count
+        launch_count += 1
+    return acc, hist
+
+
+@functools.lru_cache(maxsize=None)
+def _sums_library():
+    from . import _build
+
+    built = _build.load_library("cddf")
+    built.lib.gpdla_cddf_sums_f64.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_double] * 2 + [ctypes.c_void_p]
+    )
+    built.lib.gpdla_cddf_sums_f64.restype = ctypes.c_int
+    built.lib.gpdla_cddf_shared_bytes.argtypes = [ctypes.c_int] * 2
+    built.lib.gpdla_cddf_shared_bytes.restype = ctypes.c_size_t
+    built.lib.gpdla_cddf_max_shared_bytes.argtypes = []
+    built.lib.gpdla_cddf_max_shared_bytes.restype = ctypes.c_int
+    built.lib.gpdla_cddf_error_string.argtypes = [ctypes.c_int]
+    built.lib.gpdla_cddf_error_string.restype = ctypes.c_char_p
+    return built
+
+
 def make_cddf_reducer(
     spec: CDDFReductionSpec,
     offset_samples,
     log_nhi_samples,
     order=None,
     device=None,
+    base_order=None,
+    kernels: bool = False,
 ):
     """Build the device reduction of one batch of the lean chain.
 
@@ -283,6 +424,11 @@ def make_cddf_reducer(
         ``"cuda"`` backend), or None when pair columns ride original
         order.
       device: where the constant tables live.
+      base_order: the pair columns by ascending (grid position, column)
+        of the redraw that gives ``base_cols`` (None: column order), the
+        order in which the kernel adds a base sample's pair columns.
+      kernels: the sums through :func:`cddf_sums` (the kernel on the
+        card, the ``"cuda"`` backend), else :func:`cddf_sums_reference`.
 
     Returns ``(reduce_fn, consts)``; ``reduce_fn(consts, sll, ev1,
     ll_null, min_z, max_z, lp_no, lp_dla, lp0m, lp1m, lp2m, ll2_pair,
@@ -290,10 +436,12 @@ def make_cddf_reducer(
     returned at the dtype of ``sll`` (the run dtype).  The reduction
     itself runs in float64 whatever the run dtype, one pass over (B, S)
     next to the kernels' (B, S, P): the float32 run's weights then sum to
-    1 (its evidence, at ~1e3, is off by ~1e-4 in float32), its masses do
-    not depend on the order the card's atomics add in, and its redshift
+    1 (its evidence, at ~1e3, is off by ~1e-4 in float32), its masses
+    depend little on the order the card's atomics add in, and its redshift
     bins are the float64 host's.  A float64 run computes exactly what the
-    JAX package's float64 run does.
+    JAX package's float64 run does.  With ``kernels`` on the card, its
+    sums add in a fixed order: the reduction of a row does not depend on
+    the batch or the run.
     """
     offsets = np.asarray(offset_samples, np.float64)
     lnhis = np.asarray(log_nhi_samples, np.float64)
@@ -311,11 +459,9 @@ def make_cddf_reducer(
         "nu": put(nu),
         "nu2": put(nu**2),
         "order": None if order is None else put(order, torch.int64),
+        "base_order": put(np.arange(S) if base_order is None else base_order, torch.int64),
     }
-    # the grids each channel bins on (the CH_* layout)
-    grid_b = torch.tensor(
-        [c in (CH_SMALL_B, CH_SMALL2_B) for c in range(N_CHANNELS)], device=device
-    )
+    sums = cddf_sums if kernels else cddf_sums_reference
 
     def reduce_fn(
         c, sll, ev1, ll_null, min_z, max_z, lp_no, lp_dla, lp0m, lp1m, lp2m,
@@ -361,12 +507,6 @@ def make_cddf_reducer(
         )
         in_win = (zloc >= 0) & (zloc < W)
 
-        small1 = (p > spec.p_sample_min) & (p < spec.p_switch)
-        ps = torch.where(small1, p, zero)
-        # a posterior on one sample gives p = 1 + 1 ulp, and a negative
-        # variance there a NaN Omega_DLA error bar: the Bernoulli variance
-        # is clamped at 0 (the JAX package's is not)
-        pvar = p * torch.clamp(1.0 - p, min=0.0)
         z_over = ((~in_win) & (p > 0)).sum(dim=1)
 
         ex1_p, ex1_i = _top_k(p, K)
@@ -392,25 +532,16 @@ def make_cddf_reducer(
         # group pair columns by base sample first, then the base
         # sample's zloc/lnhi bins are the first stage's own tables
         base = base_cols.to(torch.int64)
-        acc = torch.zeros((B, S), dtype=torch.float64, device=sll.device)
-        acc.scatter_add_(1, base, p2s)
 
         ex2_p, ex2_i = _top_k(p2, K)
         ex2_b = torch.gather(base, 1, ex2_i)
         nbig2 = (p2 >= spec.p_switch).sum(dim=1)
 
-        # every channel's masses in one scatter over the flat (z, lnhi)
-        # index; samples outside the window go to a slot that is dropped
-        vals = torch.stack(
-            [ps, p, p * c["nu"], pvar, pvar * c["nu2"], ps, acc, acc], dim=1
-        )  # (B, 8, S)
-        lh = torch.where(grid_b[:, None], c["lh_b"][None, :], c["lh_a"][None, :])  # (8, S)
-        flat = zloc[:, None, :] * (nl + 1) + lh[None, :, :]
-        dump = W * (nl + 1)
-        flat = torch.where(in_win[:, None, :], flat, torch.full_like(flat, dump))
-        hist = torch.zeros((B, N_CHANNELS, dump + 1), dtype=torch.float64, device=sll.device)
-        hist.scatter_add_(2, flat, vals)
-        hist = hist[:, :, :dump].reshape(B, N_CHANNELS, W, nl + 1).to(dt)
+        _, hist = sums(
+            p, p2s, base, zloc, c["base_order"], c["lh_a"], c["lh_b"], c["nu"], c["nu2"],
+            spec.p_sample_min, spec.p_switch, W, nl,
+        )
+        hist = hist[:, :, : W * (nl + 1)].reshape(B, N_CHANNELS, W, nl + 1).to(dt)
 
         col = lambda x: x.to(f64)[:, None]
         ex = torch.cat(

@@ -39,7 +39,11 @@ from .params import LYA_WAVELENGTH, LYMAN_LIMIT, Parameters
 from .models.qso_model import GPModel
 from .ops import evidence
 from .ops.interp import interp_stack_uniform
-from .ops.low_rank_mvn import full_fp32_matmul, log_mvnpdf_low_rank
+from .ops.low_rank_mvn import (
+    full_fp32_matmul,
+    null_log_likelihoods,
+    null_log_likelihoods_reference,
+)
 from .ops.voigt import WINDOW_MARGIN
 from .runtime import BACKENDS, resolve_backend, resolve_run
 
@@ -227,11 +231,16 @@ def _prepare_spectrum(
     log_tau_0,
     log_beta,
     params: Parameters,
+    backend: str = "torch",
+    null_evidence: bool = True,
 ):
     """Per-spectrum preparation over a batch: model interpolation,
     forest scaling, validity mask, null evidence, z_DLA search range,
     and the convolution-extended wavelength grid (process_qsos.m:102-177).
-    Shared by both backends."""
+    Shared by both backends; under ``"cuda"`` the null evidence is the
+    kernel of ``ops.low_rank_mvn.null_log_likelihoods``, whose rows do not
+    depend on the batch.  ``null_evidence=False`` (the pair stage, which
+    has it from the single stage) leaves it out: None."""
     dtype, device = flux.dtype, flux.device
     # filled on the device: a tensor made from host data would copy it
     # over and wait for the copy (a host sync on the drivers' issue path)
@@ -260,9 +269,10 @@ def _prepare_spectrum(
     omega2 = torch.exp(2.0 * log_omega) * scaling**2
 
     # null-model evidence (process_qsos.m:149-152)
-    log_likelihood_no_dla = log_mvnpdf_low_rank(
-        flux, mu, M, omega2 + noise_variance, mask=valid
-    )
+    log_likelihood_no_dla = None
+    if null_evidence:
+        null = null_log_likelihoods if backend == "cuda" else null_log_likelihoods_reference
+        log_likelihood_no_dla = null(flux, mu, M, omega2 + noise_variance, valid)
 
     # z_DLA search range over unmasked modelled pixels (process_qsos.m:
     # 160-165; the policy of Parameters.max/min_z_dla_from_*)
@@ -349,7 +359,7 @@ def batch_log_likelihoods(
     prep = _prepare_spectrum(
         wavelengths, flux, noise_variance, mask, z_qso,
         model_grid, model_mu, model_M, model_log_omega,
-        log_c_0, log_tau_0, log_beta, params,
+        log_c_0, log_tau_0, log_beta, params, backend=backend,
     )
     offsets = offset_samples.to(dtype)
     nhis = nhi_samples.to(dtype)

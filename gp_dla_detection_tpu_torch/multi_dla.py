@@ -40,7 +40,7 @@ from .inference import (
     process_spectra,
 )
 from .models.qso_model import GPModel
-from .ops import evidence
+from .ops import evidence, redraw
 from .runtime import resolve_backend, resolve_run
 
 __all__ = [
@@ -50,6 +50,7 @@ __all__ = [
     "batch_dla2_log_likelihoods",
     "device_base_sample_inds",
     "device_inverse_cdf_grid",
+    "device_inverse_cdf_grid_reference",
     "finalize_multi",
     "finalize_multi_from_evidence",
     "make_base_sample_inds",
@@ -224,19 +225,13 @@ def _multi_posteriors(single, ll2, z_qsos, prior_z_qsos, prior_num_dlas,
 # ---------------------------------------------------------------------------
 
 
-def _posterior_cdf(sample_log_likelihoods):
-    """Per-row normalized posterior CDF of a (B, S) sample-likelihood
-    tensor: NaN counts as -inf, and rows with no finite mass fall back to
-    uniform weights (a zero-total CDF would divide to NaN)."""
-    sll = sample_log_likelihoods
-    neg_inf = torch.full((), -math.inf, dtype=sll.dtype, device=sll.device)
-    finite = torch.where(torch.isnan(sll), neg_inf, sll)
-    rowmax = torch.amax(finite, dim=1, keepdim=True)
-    rowmax = torch.where(torch.isfinite(rowmax), rowmax, torch.zeros_like(rowmax))
-    w = torch.exp(finite - rowmax)
-    w = torch.where(w.sum(dim=1, keepdim=True) == 0.0, torch.ones_like(w), w)
-    cdf = torch.cumsum(w, dim=1)
-    return cdf / cdf[:, -1:]
+# the redraw (ops/redraw.py) under the JAX package's names: the search-free
+# inverse CDF at grid quantiles (the kernel on CUDA tensors), its plain
+# version and the plain version's two steps
+device_inverse_cdf_grid = redraw.inverse_cdf_grid
+device_inverse_cdf_grid_reference = redraw.inverse_cdf_grid_reference
+_posterior_cdf = redraw.posterior_cdf_reference
+_grid_counts = redraw.grid_counts_reference
 
 
 def device_base_sample_inds(sample_log_likelihoods, u):
@@ -251,53 +246,6 @@ def device_base_sample_inds(sample_log_likelihoods, u):
     u = torch.as_tensor(u, dtype=sll.dtype, device=sll.device)
     inds = torch.searchsorted(cdf, u.expand(cdf.shape[0], -1).contiguous(), side="left")
     return torch.clamp(inds, 0, sll.shape[1] - 1)
-
-
-def device_inverse_cdf_grid(sample_log_likelihoods, kvec, grid_size=None):
-    """Search-free :func:`device_base_sample_inds` for grid quantiles:
-    per-row inverse CDF at u_j = (kvec_j + 0.5) / grid_size, int64
-    (B, len(kvec)).  ``kvec`` is the grid permutation, possibly composed
-    with further permutations; ``grid_size`` (default: the sample count)
-    is the number of grid quantiles, smaller under base replication,
-    while the returned indices run over the whole sample axis.
-
-    Equals ``searchsorted(cdf, (kvec + 0.5) / grid_size, side='left')``
-    on the float64 grid bit for bit (_grid_counts).
-    """
-    sll = sample_log_likelihoods
-    if grid_size is None:
-        grid_size = sll.shape[1]
-    kvec = torch.as_tensor(kvec, dtype=torch.int64, device=sll.device)
-    return _grid_counts(_posterior_cdf(sll), grid_size)[:, kvec]
-
-
-def _grid_counts(cdf, s: int):
-    """Per-row counts g_k = #{i : cdf_i < (k + 0.5)/s} for every grid
-    position k < s, clipped to valid sample indices: each CDF step is
-    bucketed into its grid cell (one rounding, then an exact two-step
-    correction against the grid's own arithmetic), a scatter-add
-    histograms the buckets and a cumsum gives the counts.
-
-    The divisor is a 0-d tensor: PyTorch divides by a Python number as a
-    multiply by its rounded reciprocal, which would move the cell
-    boundaries off the correctly rounded (k +- 0.5)/s that numpy's grid
-    and JAX compute.
-    """
-    dt = cdf.dtype
-    s_f = torch.full((), s, dtype=dt, device=cdf.device)
-    half = torch.full((), 0.5, dtype=dt, device=cdf.device)
-    m = torch.clamp(torch.floor(cdf * s_f + half).to(torch.int64), 0, s)
-    for _ in range(2):  # |rounded - true| <= 1; two steps each way
-        u_below = (m.to(dt) - half) / s_f
-        m = torch.where((m > 0) & (u_below > cdf), m - 1, m)
-        u_at = (m.to(dt) + half) / s_f
-        m = torch.where((m < s) & (u_at <= cdf), m + 1, m)
-    hist = torch.zeros((cdf.shape[0], s + 1), dtype=torch.int64, device=cdf.device)
-    hist.scatter_add_(1, m, torch.ones_like(m))
-    g = torch.cumsum(hist[:, :s], dim=1)
-    # counts index SAMPLES (CDF steps): clip to the sample axis, which
-    # differs from the grid size under base replication
-    return torch.clamp(g, 0, cdf.shape[1] - 1)
 
 
 def pack_lean_pair(pair_lls, base_inds):
@@ -381,7 +329,7 @@ def batch_dla2_log_likelihoods(
     prep = _prepare_spectrum(
         wavelengths, flux, noise_variance, mask, z_qso,
         model_grid, model_mu, model_M, model_log_omega,
-        log_c_0, log_tau_0, log_beta, params,
+        log_c_0, log_tau_0, log_beta, params, backend=backend, null_evidence=False,
     )
     min_z, max_z = prep["min_z_dla"], prep["max_z_dla"]
     rng_z = (max_z - min_z)[:, None]

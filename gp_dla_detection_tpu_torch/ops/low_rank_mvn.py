@@ -9,9 +9,22 @@ B = I + M' D^-1 M (log_mvnpdf_low_rank.m:5-33).  All functions take any
 leading batch axes; the JAX package's vmap over spectra is a batch axis
 here.  Float32 matrix products must run in full float32 on the card
 (no TF32): :func:`full_fp32_matmul` sets that.
+
+The null model's evidence of a batch, :func:`null_log_likelihoods`, is
+the one function here with a CUDA kernel (``csrc/null_evidence.cu``): on
+CUDA tensors it launches the kernel (float32 only) or raises, on CPU
+tensors it runs the plain version, :func:`null_log_likelihoods_reference`
+(:func:`log_mvnpdf_low_rank`).  The kernel adds each row's sums in an
+order fixed by the row alone; the plain version's ``torch.sum`` and
+batched products on the card do not (a spectrum's value there can move
+with the batch size and its position in the batch).  ``launch_count``
+counts the kernel's launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -21,10 +34,15 @@ __all__ = [
     "batched_dla_log_likelihoods",
     "batched_spd_quad_logdet",
     "full_fp32_matmul",
+    "launch_count",
     "log_mvnpdf_low_rank",
+    "null_log_likelihoods",
+    "null_log_likelihoods_reference",
     "pair_products",
     "woodbury_log_p",
 ]
+
+launch_count = 0   # null_log_likelihoods kernel launches
 
 LOG_2PI = 1.8378770664093454836  # log(2*pi)
 
@@ -151,6 +169,76 @@ def log_mvnpdf_low_rank(y, mu, M, d, mask=None):
     b = torch.matmul(u[..., None, :], M)[..., 0, :]
     bBb, logdet_B = batched_spd_quad_logdet(B, b)
     return -0.5 * (quad0 - bBb + logdet_d + logdet_B + n_eff * LOG_2PI)
+
+
+def null_log_likelihoods(y, mu, M, d, mask):
+    """log N(y; mu, M M' + diag(d)) per row over the pixels where
+    ``mask`` is True: ``y``, ``mu``, ``d``, ``mask`` (B, P), ``M``
+    (B, P, k); returns (B,).
+
+    CUDA tensors: ``csrc/null_evidence.cu``, float32 only; anything it
+    cannot take (another dtype or shape, tensors on several devices, k
+    beyond the kernel's) raises, as does a failed build or launch.  CPU
+    tensors: :func:`null_log_likelihoods_reference`.
+    """
+    if not y.is_cuda:
+        return null_log_likelihoods_reference(y, mu, M, d, mask)
+    if y.dim() != 2 or M.dim() != 3:
+        raise ValueError(f"y must be (B, P) and M (B, P, k); got {tuple(y.shape)}, {tuple(M.shape)}")
+    B, P = y.shape
+    k = M.shape[-1]
+    built = _null_library()
+    for t, shape in ((y, (B, P)), (mu, (B, P)), (d, (B, P)), (mask, (B, P)), (M, (B, P, k))):
+        if t.device != y.device or tuple(t.shape) != shape:
+            raise ValueError(
+                f"the CUDA null evidence takes {shape} tensors on {y.device}; got "
+                f"{tuple(t.shape)} on {t.device}"
+            )
+    for t in (y, mu, d, M):
+        if t.dtype != torch.float32:
+            raise ValueError(
+                f"the CUDA null evidence is float32-only; got {t.dtype}. "
+                "Use the plain version (backend='torch') for float64."
+            )
+    if not 1 <= k <= built.lib.gpdla_null_evidence_max_k():
+        raise ValueError(f"the CUDA null evidence takes 1 <= k <= "
+                         f"{built.lib.gpdla_null_evidence_max_k()}, got {k}")
+    if P < 1 or B > (1 << 31) - 1:
+        raise ValueError(f"(B, P) = {(B, P)} outside the kernel's grid")
+    out = torch.empty(B, dtype=torch.float32, device=y.device)
+    if B:
+        args = [t.contiguous() for t in (y, mu, M, d, mask.to(torch.bool))]
+        with torch.cuda.device(y.device):
+            stream = torch.cuda.current_stream(y.device).cuda_stream
+            err = built.lib.gpdla_null_evidence_f32(
+                *[t.data_ptr() for t in args], out.data_ptr(), B, P, k, stream
+            )
+        if err != 0:
+            msg = built.lib.gpdla_null_evidence_error_string(err).decode()
+            raise RuntimeError(f"null evidence kernel launch failed: {msg} (cudaError {err})")
+        global launch_count
+        launch_count += 1
+    return out
+
+
+# the plain version of null_log_likelihoods
+null_log_likelihoods_reference = log_mvnpdf_low_rank
+
+
+@functools.lru_cache(maxsize=None)
+def _null_library():
+    from .. import _build
+
+    built = _build.load_library("null_evidence")
+    built.lib.gpdla_null_evidence_f32.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
+    built.lib.gpdla_null_evidence_f32.restype = ctypes.c_int
+    built.lib.gpdla_null_evidence_max_k.argtypes = []
+    built.lib.gpdla_null_evidence_max_k.restype = ctypes.c_int
+    built.lib.gpdla_null_evidence_error_string.argtypes = [ctypes.c_int]
+    built.lib.gpdla_null_evidence_error_string.restype = ctypes.c_char_p
+    return built
 
 
 def batched_dla_log_likelihoods(y, mu, M, omega2, noise_variance, mask, absorption):

@@ -11,13 +11,18 @@ rank), each data rank runs on its device, on its rows:
 2. their evidence and MAP sample (``streaming.pack_lean``);
 3. the inverse-CDF redraw of a second absorber from the 1-DLA posterior
    at the composed column permutation (``multi_dla.device_inverse_cdf_
-   grid``);
+   grid``: the kernel of ``ops/redraw.py`` under ``"cuda"``);
 4. the gather of the drawn (z offset, N_HI) from one packed (S, 2) table;
 5. the pair evidences (``multi_dla.batch_dla2_log_likelihoods``, on the
    z-sorted fresh axis under ``"cuda"``);
 6. the pair evidence, MAP pair and MAP base index
    (``multi_dla.pack_lean_pair``);
-7. optionally the CDDF inputs (``cddf_inputs.make_cddf_reducer``).
+7. optionally the CDDF inputs (``cddf_inputs.make_cddf_reducer``; its
+   sums in the kernel of ``cddf_inputs.cddf_sums`` under ``"cuda"``).
+
+Under ``"cuda"`` every kernel of the chain adds in an order fixed by the
+row alone, so the results, the CDDF inputs included, do not depend on
+the batch size or the run.
 
 Only eight per-spectrum vectors (and the CDDF reductions) reach the
 host; they are gathered along the data axis, so that every rank holds
@@ -90,6 +95,7 @@ from ..multi_dla import (
     base_sample_perm,
     batch_dla2_log_likelihoods,
     device_inverse_cdf_grid,
+    device_inverse_cdf_grid_reference,
     finalize_multi_from_evidence,
     multi_dla_rate_priors,
     pack_lean_pair,
@@ -314,7 +320,8 @@ def process_spectra_multi_lean(
         # samples, as in the JAX package (within 1 ulp of the stored
         # log_nhi_samples the host statistics rebind against)
         cddf_reduce, cddf_consts = make_cddf_reducer(
-            cddf_spec, offsets, np.log10(nhis), order=order, device=device
+            cddf_spec, offsets, np.log10(nhis), order=order, device=device,
+            base_order=np.argsort(cols, kind="stable"), kernels=use_cuda,
         )
         log_p0m, log_p1m, log_p2m = multi_dla_rate_priors(
             spectra.z_qso, prior_z_qsos, prior_num, params
@@ -404,7 +411,10 @@ def process_spectra_multi_lean(
         )
         sll = whole_rows(out1["sample_log_likelihoods_dla"])
         ev1, map1 = pack_lean(sll)
-        base_cols = device_inverse_cdf_grid(sll, cols_dev, grid_size)
+        # the kernel under "cuda" (a row's draws depend on that row alone),
+        # the plain version otherwise
+        redraw = device_inverse_cdf_grid if use_cuda else device_inverse_cdf_grid_reference
+        base_cols = redraw(sll, cols_dev, grid_size)
         vals = base_tables[base_cols]                    # (B, S, 2)
         if block is not None:
             vals = vals[:, block].contiguous()

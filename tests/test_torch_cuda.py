@@ -2,8 +2,11 @@
 the single-absorber and the two-DLA pair configurations.  Also the
 drivers on a one-rank NCCL mesh (its collectives on the card) against the
 same runs with no process group, the on-device L-BFGS on the card, the
-golden fixture through the float64 plain path on the card, and the
-float32 plain path's independence of where a column's block sits.
+golden fixture through the float64 plain path on the card, the float32
+plain path's independence of where a column's block sits, and the fused
+chain's fixed-order kernels (the redraw, the CDDF sums, the null
+evidence) against their plain versions, row by row independent of the
+batch, and the chain with them the same bits at every batch size.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); without a card they
 skip.  The file imports no jax, so on a machine without jax run it
@@ -338,3 +341,239 @@ def test_device_lbfgs_on_the_card(device):
     np.testing.assert_allclose(card.x, cpu.x, rtol=1e-8, atol=1e-10)
     # scalar reads only: one per line-search trial and one per iteration
     assert syncs == 1 + (card.fun_evals - 1) + card.iterations
+
+
+# ---------------------------------------------------------------------------
+# the base redraw's kernel (ops/redraw.py) and the CDDF sums' kernel
+# (cddf_inputs.cddf_sums): fixed orders of addition
+# ---------------------------------------------------------------------------
+
+
+def redraw_rows(rng, B, S):
+    """Posterior-like float32 rows: broad, peaked, a NaN row, an all -inf
+    row, scattered NaN and -inf entries."""
+    sll = rng.normal(-50.0, 4.0, (B, S))
+    sll[1 % B] = rng.normal(-50.0, 0.3, S)
+    sll[2 % B, rng.integers(S)] += 200.0
+    sll[3 % B] = np.nan
+    sll[4 % B] = -np.inf
+    sll[5 % B, rng.integers(0, S, S // 10 + 1)] = np.nan
+    sll[6 % B, rng.integers(0, S, S // 10 + 1)] = -np.inf
+    return sll.astype(np.float32)
+
+
+@pytest.mark.parametrize("S,grid", [(1, 1), (7, 7), (300, 300), (300, 75), (300, 600),
+                                    (4096, 4096), (10000, 2500), (10000, 10000)])
+def test_redraw_kernel_counts_are_grid_counts_of_its_cdf(device, S, grid):
+    from gp_dla_detection_tpu_torch.ops import redraw
+
+    rng = np.random.default_rng(S + grid)
+    sll = torch.as_tensor(redraw_rows(rng, 9, S), device=device)
+    kvec = torch.as_tensor(rng.integers(0, grid, S), device=device)
+    before = (redraw.launch_count, redraw.cdf_launch_count)
+    got = redraw.inverse_cdf_grid(sll, kvec, grid)
+    cdf = redraw.posterior_cdf(sll)
+    torch.cuda.synchronize()
+    assert (redraw.launch_count, redraw.cdf_launch_count) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.int64 and got.shape == (9, S)
+    want = redraw.grid_counts_reference(cdf, grid)[:, kvec]
+    assert torch.equal(got, want)
+    # the CDF: within twice the plain float32 scan's distance from float64
+    plain = redraw.posterior_cdf_reference(sll)
+    exact = redraw.posterior_cdf_reference(sll.double())
+    err = lambda c: float((c.double() - exact).abs().max())
+    assert err(cdf) <= 2 * err(plain) + 1e-7, (err(cdf), err(plain))
+    assert torch.equal(cdf[:, -1], torch.ones_like(cdf[:, -1]))
+
+
+def test_redraw_kernel_rows_do_not_depend_on_the_batch(device):
+    from gp_dla_detection_tpu_torch.ops import redraw
+
+    rng = np.random.default_rng(2)
+    S, grid = 10000, 2500
+    sll = torch.as_tensor(redraw_rows(rng, 64, S), device=device)
+    kvec = torch.as_tensor(rng.integers(0, grid, S), device=device)
+    whole = redraw.inverse_cdf_grid(sll, kvec, grid)
+    cdf = redraw.posterior_cdf(sll)
+    for rows in (slice(0, 1), slice(0, 7), slice(13, 64)):
+        assert torch.equal(redraw.inverse_cdf_grid(sll[rows], kvec, grid), whole[rows])
+        assert torch.equal(redraw.posterior_cdf(sll[rows]), cdf[rows])
+    perm = torch.as_tensor(rng.permutation(64), device=device)
+    assert torch.equal(redraw.inverse_cdf_grid(sll[perm], kvec, grid), whole[perm])
+    assert torch.equal(redraw.posterior_cdf(sll[perm]), cdf[perm])
+
+
+def test_redraw_kernel_refuses_what_it_cannot_take(device):
+    from gp_dla_detection_tpu_torch.ops import redraw
+
+    sll = torch.zeros((2, 50), device=device)
+    kvec = torch.arange(50, device=device)
+    with pytest.raises(ValueError, match="float32-only"):
+        redraw.inverse_cdf_grid(sll.double(), kvec)
+    with pytest.raises(ValueError, match=r"\(B, S\)"):
+        redraw.inverse_cdf_grid(sll[None], kvec)
+    with pytest.raises(ValueError, match="1-D"):
+        redraw.inverse_cdf_grid(sll, kvec[None])
+    with pytest.raises(ValueError, match="holds at most"):
+        redraw.inverse_cdf_grid(sll, kvec, redraw.max_grid_size(device) + 1)
+    with pytest.raises(ValueError, match=r"2\*\*23"):
+        redraw.inverse_cdf_grid(torch.zeros((1, redraw.MAX_SAMPLES), device=device), kvec)
+    assert redraw.inverse_cdf_grid(sll[:0], kvec).shape == (0, 50)
+
+
+def cddf_sums_inputs(device, B=6, S=3000, structured=True, seed=0):
+    """The sums' inputs as the reducer makes them: the bases of a redraw
+    at R = 4 and z rows from a redshift range, monotone in the offset
+    (``structured``), or random ones of both."""
+    from gp_dla_detection_tpu_torch.cddf_inputs import CDDFReductionSpec
+    from gp_dla_detection_tpu_torch.ops import redraw
+
+    spec = CDDFReductionSpec()
+    rng = np.random.default_rng(seed)
+    draw_idx, grid = replicate_draw_pattern(S, 256, 4)
+    cols = rng.permutation(grid)[draw_idx]
+    sll = torch.as_tensor(redraw_rows(rng, B, S), device=device)
+    if structured:
+        base = redraw.inverse_cdf_grid(sll, torch.as_tensor(cols, device=device), grid)
+    else:
+        base = torch.as_tensor(rng.integers(0, S, (B, S)), device=device)
+    p = torch.as_tensor(rng.dirichlet(np.full(S, 0.05), B) * rng.uniform(0, 1, (B, 1)),
+                        device=device)
+    p2s = torch.as_tensor(np.where(rng.uniform(size=(B, S)) < 0.3,
+                                   rng.uniform(1e-4, 0.25, (B, S)), 0.0), device=device)
+    offsets = rng.uniform(size=S)
+    if structured:
+        min_z = rng.uniform(2.0, 3.0, (B, 1))
+        zf = min_z + rng.uniform(0.8, 2.4, (B, 1)) * offsets[None, :]
+        zloc = np.floor(zf * spec.z_bins_per_unit) - np.floor(min_z * spec.z_bins_per_unit)
+    else:
+        zloc = rng.integers(-2, spec.n_z_window + 2, (B, S))
+    zloc = torch.as_tensor(zloc, device=device).to(torch.int64)
+    lnhi = rng.uniform(19.8, 23.2, S)
+    tab = lambda a, dt: torch.as_tensor(np.asarray(a), device=device).to(dt)
+    nu = 10.0 ** (lnhi - spec.nu_log_offset)
+    args = (p, p2s, base, zloc, tab(np.argsort(cols, kind="stable"), torch.int64),
+            tab(spec.lnhi_bin_index(lnhi, "a"), torch.int64),
+            tab(spec.lnhi_bin_index(lnhi, "b"), torch.int64),
+            tab(nu, torch.float64), tab(nu**2, torch.float64),
+            spec.p_sample_min, spec.p_switch, spec.n_z_window, spec.n_lnhi)
+    return args
+
+
+@pytest.mark.parametrize("structured", [True, False])
+def test_cddf_sums_kernel_matches_plain_and_repeats(device, structured):
+    from gp_dla_detection_tpu_torch import cddf_inputs
+
+    args = cddf_sums_inputs(device, structured=structured)
+    before = cddf_inputs.launch_count
+    runs = [cddf_inputs.cddf_sums(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert cddf_inputs.launch_count == before + 3
+    acc, hist = runs[0]
+    for a, h in runs[1:]:
+        assert torch.equal(a, acc) and torch.equal(h, hist)
+    ref_acc, ref_hist = cddf_inputs.cddf_sums_reference(*args)
+    assert hist.shape == ref_hist.shape
+    for got, ref in ((acc, ref_acc), (hist, ref_hist)):
+        rel = ((got - ref).abs() / ref.abs().clamp(min=1e-300)).max()
+        assert float(rel) <= 1e-12
+    # rows alone: a batch of one and the rows permuted give the same bits
+    B = acc.shape[0]
+    perm = torch.as_tensor(np.random.default_rng(1).permutation(B), device=device)
+    row_args = lambda rows: [a[rows] if torch.is_tensor(a) and a.shape[0] == B and a.dim() == 2
+                             else a for a in args]
+    a1, h1 = cddf_inputs.cddf_sums(*row_args(slice(2, 3)))
+    assert torch.equal(a1, acc[2:3]) and torch.equal(h1, hist[2:3])
+    ap, hp = cddf_inputs.cddf_sums(*row_args(perm))
+    assert torch.equal(ap, acc[perm]) and torch.equal(hp, hist[perm])
+
+
+def test_cddf_sums_kernel_refuses_what_it_cannot_take(device):
+    from gp_dla_detection_tpu_torch import cddf_inputs
+
+    args = list(cddf_sums_inputs(device, B=2, S=300))
+    bad = list(args)
+    bad[0] = args[0].float()
+    with pytest.raises(ValueError, match="float64"):
+        cddf_inputs.cddf_sums(*bad)
+    bad = list(args)
+    bad[4] = args[4][:-1]
+    with pytest.raises(ValueError, match="int64"):
+        cddf_inputs.cddf_sums(*bad)
+    bad = list(args)
+    bad[-2] = 4096
+    with pytest.raises(ValueError, match="shared memory"):
+        cddf_inputs.cddf_sums(*bad)
+
+
+def test_fused_chain_does_not_depend_on_the_batch(device):
+    """The fused lean chain with the CDDF inputs on the card (the kernels,
+    R = 4) gives the same bits at every batch size and in every run."""
+    import torch_distributed_worker as worker
+    from gp_dla_detection_tpu_torch import cddf_inputs
+    from gp_dla_detection_tpu_torch.ops import redraw
+    from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi_lean
+
+    params, model, spectra, offsets, nhis, prior_z, _ = worker.port_problem()
+    model = model.to(device=device, dtype=torch.float32)
+
+    def run(batch):
+        before = (redraw.launch_count, cddf_inputs.launch_count)
+        res = process_spectra_multi_lean(
+            model, offsets, nhis, spectra, prior_z, worker.prior_num(), params=params,
+            batch_size=batch, store_cddf_inputs=True,
+        )
+        n = -(-len(spectra) // batch)
+        assert (redraw.launch_count, cddf_inputs.launch_count) == (before[0] + n, before[1] + n)
+        fields = worker.multi_fields(res)
+        fields.update(cddf_hist=res.cddf_inputs.hist, cddf_ex=res.cddf_inputs.ex)
+        return fields
+
+    ref = run(11)
+    for batch in (1, 2, 4, 11):
+        got = run(batch)
+        for k, v in ref.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=f"batch {batch}: {k}")
+
+
+def null_inputs(device, B=64, P=1274, k=20, seed=0):
+    rng = np.random.default_rng(seed)
+    mask = rng.uniform(size=(B, P)) > 0.1
+    mask[min(3, B - 1)] = False   # a spectrum with no valid pixel
+    arrays = (rng.normal(1.0, 0.3, (B, P)),
+              1.0 + 0.1 * np.sin(np.arange(P) / 30.0)[None, :].repeat(B, 0),
+              rng.normal(size=(B, P, k)) * 0.08, rng.uniform(0.01, 0.2, (B, P)))
+    return [torch.as_tensor(a, device=device).float() for a in arrays] + [
+        torch.as_tensor(mask, device=device)]
+
+
+def test_null_evidence_kernel_matches_plain_and_the_batch(device):
+    from gp_dla_detection_tpu_torch.ops import low_rank_mvn
+
+    args = null_inputs(device)
+    before = low_rank_mvn.launch_count
+    out = low_rank_mvn.null_log_likelihoods(*args)
+    torch.cuda.synchronize()
+    assert low_rank_mvn.launch_count == before + 1
+    plain = low_rank_mvn.null_log_likelihoods_reference(*args)
+    exact = low_rank_mvn.null_log_likelihoods_reference(*[a.double() if a.is_floating_point()
+                                                          else a for a in args])
+    assert normalized_err(out, plain) < BOUND
+    err = lambda x: float((x.double() - exact).abs().max())
+    assert err(out) <= 2 * err(plain) + 1e-4, (err(out), err(plain))
+    # a row's bits depend on that row alone: alone, shifted by one, permuted
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(64), device=device)
+    for rows in (slice(0, 1), slice(1, 2), slice(1, 57), perm):
+        assert torch.equal(low_rank_mvn.null_log_likelihoods(*[a[rows] for a in args]), out[rows])
+
+
+def test_null_evidence_kernel_refuses_what_it_cannot_take(device):
+    from gp_dla_detection_tpu_torch.ops import low_rank_mvn
+
+    y, mu, M, d, mask = null_inputs(device, B=2, P=100)
+    with pytest.raises(ValueError, match="float32-only"):
+        low_rank_mvn.null_log_likelihoods(y.double(), mu, M, d, mask)
+    with pytest.raises(ValueError, match="1 <= k"):
+        low_rank_mvn.null_log_likelihoods(y, mu, torch.zeros((2, 100, 22), device=device), d, mask)
+    with pytest.raises(ValueError, match="tensors on"):
+        low_rank_mvn.null_log_likelihoods(y, mu, M, d[:, :50], mask)

@@ -32,6 +32,7 @@ PORT_MODULES = [
     "gp_dla_detection_tpu_torch.ops.low_rank_mvn",
     "gp_dla_detection_tpu_torch.ops.voigt",
     "gp_dla_detection_tpu_torch.ops.evidence",
+    "gp_dla_detection_tpu_torch.ops.redraw",
     "gp_dla_detection_tpu_torch.models",
     "gp_dla_detection_tpu_torch.models.qso_model",
     "gp_dla_detection_tpu_torch.inference",
