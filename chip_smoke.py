@@ -132,7 +132,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    the CDDF inputs on the bench's first 1,024 spectra at batch 1024
    against batches 256 and 128: bit-identical in every array, or the
    phase fails with the kernel inputs that differ; one single, pair,
-   redraw and CDDF sums launch per batch; the plain redraw (the
+   redraw and CDDF sums launch per batch; the same chain at S = 10,001
+   (a sample count that is not a multiple of 4) on 256 spectra at
+   batches 256 and 128, bit-identical in every array; the plain redraw (the
    backend="torch" path) replayed op by op on the chain's inputs at both
    batches, the first of its ops whose output depends on the batch
    printed; the redraw kernel's checks of phase 6 on the bench's inputs
@@ -140,7 +142,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    CDDF sums kernel (csrc/cddf.cu) on the chain's own inputs at B = 1024:
    within 1e-12 relative of the plain float64 sums, bit-identical over
    three runs and for a row alone, its time at B = 128 and 1024 beside
-   the plain sums' and its bound; the null evidence kernel
+   the plain sums', its bound and one ``scatter_add_`` of the prebuilt
+   values (the same histogram with atomics), and the CDDF reducer's
+   device time on the chain's batch split by op (CUDA events: the sums,
+   each of the two stable sorts, the rest, the copies to the host); the
+   null evidence kernel
    (csrc/null_evidence.cu) on the bench's spectra: within 5e-5
    normalized of its plain version and 5e-4 of float64, each row the same
    bits at B = 1, 128 and 256, shifted by one and permuted (the plain
@@ -201,6 +207,9 @@ BENCH_BATCH = 1024            # phase 10: the bench's batch (its default, bench.
 BENCH_SWEEP = (128, 256, 512, 1024)   # phase 10: the kernel mode's batches
 BENCH_TIMEOUT = 300           # phase 10: seconds one bench process may take
 BENCH_CHAIN_BATCHES = (1024, 256, 128)   # phase 10: the chain's batches, bit-identical
+ODD_S = 10001                 # phase 10: a sample count that is not a multiple of 4
+ODD_S_SPECTRA = 256           # phase 10: the chain at ODD_S on this many spectra, at
+                              # batches ODD_S_SPECTRA and BATCH, bit-identical
 KERNEL_SOURCES = ("evidence", "redraw", "cddf", "null_evidence")   # csrc/<name>.cu
 # the previous design's kernel times at the phase-3/5 shapes, for
 # comparison (PERF.md, PR 3's chip runs on NVIDIA H100 80GB HBM3, 700.00 W)
@@ -2102,6 +2111,119 @@ def cddf_sums_check(args, label: str, smi: str) -> dict:
     return {"max_rel_err": rel, "max_abs_err": abs_err}
 
 
+@contextlib.contextmanager
+def kept_reduction(sharded_multi, keep: list):
+    """Keep the lean driver's CDDF reducer and its first batch's arguments
+    (on the card) in ``keep`` as (reduce_fn, consts, args), without
+    changing them."""
+    make = sharded_multi.make_cddf_reducer
+
+    def spy_make(*a, **kw):
+        reduce_fn, consts = make(*a, **kw)
+
+        def spy(c, *args):
+            if not keep:
+                keep.append((reduce_fn, c, [x.clone() for x in args]))
+            return reduce_fn(c, *args)
+
+        return spy, consts
+
+    sharded_multi.make_cddf_reducer = spy_make
+    try:
+        yield keep
+    finally:
+        sharded_multi.make_cddf_reducer = make
+
+
+def reducer_split(keep, sums_ms: float, n: int) -> dict:
+    """The CDDF reducer's device time on the first ``n`` rows of one chain
+    batch (``keep``, from ``kept_reduction``), split by op with CUDA
+    events: the whole reduction; its sums kernel (``sums_ms``, timed on
+    the same rows); each of ``_top_k``'s two stable float64 sorts; the
+    rest, the whole less those three (the mean/exp/log and other
+    elementwise passes, the row reductions, the gather and the
+    concatenation); and the copies of its two outputs to pinned host
+    memory, as the driver's fetch makes them."""
+    import torch
+
+    from gp_dla_detection_tpu_torch import cddf_inputs
+
+    reduce_fn, consts, args = keep[0]
+    B = args[0].shape[0]
+    rows = [a[:n] if a.dim() and a.shape[0] == B else a for a in args]
+    total = cuda_ms(lambda: reduce_fn(consts, *rows), 10)
+    sorted_inputs = []
+    real_top_k = cddf_inputs._top_k
+    cddf_inputs._top_k = lambda x, k: (sorted_inputs.append((x, k)), real_top_k(x, k))[1]
+    try:
+        hist, ex = reduce_fn(consts, *rows)
+    finally:
+        cddf_inputs._top_k = real_top_k
+    sorts = [cuda_ms(lambda x=x, k=k: real_top_k(x, k), 10) for x, k in sorted_inputs]
+    pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (hist, ex)]
+
+    def copies():
+        for host, t in zip(pinned, (hist, ex)):
+            host.copy_(t, non_blocking=True)
+
+    copy_ms = cuda_ms(copies, 10)
+    return {"total_ms": total, "sums_ms": sums_ms, "sort_ms": sorts,
+            "rest_ms": total - sums_ms - sum(sorts), "copy_to_host_ms": copy_ms}
+
+
+def longest_runs(args) -> tuple[float, int]:
+    """The longest run of equal bases along ``base_order`` in each row of
+    the CDDF sums' inputs ``args``: (the mean over the rows, the most).
+    A run's sum is one chain of dependent adds in the kernel."""
+    import numpy as np
+
+    keys = args[2][:, args[4]].cpu().numpy()
+    longest = [int(np.diff(np.flatnonzero(np.r_[True, r[1:] != r[:-1], True])).max())
+               for r in keys]
+    return float(np.mean(longest)), max(longest)
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Milliseconds the host takes to issue ``fn()`` (its Python wrapper
+    and launch, no synchronize inside the timing), mean of ``reps`` after
+    a warm-up: where it reaches the CUDA-event time, the timing is the
+    host's, not the card's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e3
+
+
+def scatter_add_ms(args, acc) -> float:
+    """The CDDF histogram as one float64 ``scatter_add_`` (the card's
+    atomics) of the eight channels' prebuilt values at their prebuilt
+    flat bins (``cddf_sums_reference``'s second scatter, ``acc`` the
+    kernel's): the library yardstick, which the port never calls."""
+    import torch
+
+    from gp_dla_detection_tpu_torch import cddf_inputs
+
+    p, _, _, zloc, _, lh_a, lh_b, nu, nu2, p_min, p_switch, W, nl = args
+    zero = torch.zeros((), dtype=torch.float64, device=p.device)
+    ps = torch.where((p > p_min) & (p < p_switch), p, zero)
+    pvar = p * torch.clamp(1.0 - p, min=0.0)
+    vals = torch.stack([ps, p, p * nu, pvar, pvar * nu2, ps, acc, acc], dim=1)
+    ch = torch.arange(cddf_inputs.N_CHANNELS, device=p.device)
+    lh = torch.where(((ch == 5) | (ch == 7))[:, None], lh_b[None, :], lh_a[None, :])
+    flat = torch.where(((zloc >= 0) & (zloc < W))[:, None, :],
+                       zloc[:, None, :] * (nl + 1) + lh[None, :, :],
+                       torch.full_like(zloc[:, None, :], W * (nl + 1)))
+    hist = torch.zeros((p.shape[0], cddf_inputs.N_CHANNELS, W * (nl + 1) + 1),
+                       dtype=torch.float64, device=p.device)
+    return cuda_ms(lambda: hist.scatter_add_(2, flat, vals), 10)
+
+
 def capture_cddf_sums(log: list):
     """A stand-in for ``cddf_inputs.cddf_sums`` that keeps (on the card)
     the arguments of its first call in ``log`` and calls the real one."""
@@ -2301,14 +2423,15 @@ def bench_phase(smi: str, seed: int) -> dict:
     real = {"single": evidence.sample_log_likelihoods, "pair": evidence.sample_log_likelihoods_pair}
     real_redraw = sharded_multi.device_inverse_cdf_grid
 
-    def chain(batch, sums_log=None):
+    def chain(batch, sums_log=None, reducer=None):
         """The chain's results and launches at ``batch`` (the bench's
         workload through ``process_spectra_multi_sharded`` as ``bench
         --driver --lean --two-stage`` runs it, with the CDDF inputs), each
         evidence kernel's tensor inputs over all its launches (rows
         stacked), and the base redraw's calls (its (B, S) input on the
         host, its grid); ``sums_log``: keep the first CDDF sums call's
-        arguments there."""
+        arguments there; ``reducer``: keep the reducer and its first
+        batch's arguments there (``kept_reduction``)."""
         seen = {name: [] for name in real}
         redraws = []
 
@@ -2329,12 +2452,14 @@ def bench_phase(smi: str, seed: int) -> dict:
         cddf_inputs.cddf_sums = sums_spy
         reset_counts()
         try:
-            res = sharded_multi.process_spectra_multi_sharded(
-                work.model, work.offsets, work.nhis, work.spectra.slice(slice(0, B)),
-                work.prior_z, work.prior_num,
-                config=ShardedRunConfig(per_device_batch=batch, dtype="float32",
-                                        store_sample_likelihoods=False, store_cddf_inputs=True),
-            )
+            with kept_reduction(sharded_multi, [] if reducer is None else reducer):
+                res = sharded_multi.process_spectra_multi_sharded(
+                    work.model, work.offsets, work.nhis, work.spectra.slice(slice(0, B)),
+                    work.prior_z, work.prior_num,
+                    config=ShardedRunConfig(per_device_batch=batch, dtype="float32",
+                                            store_sample_likelihoods=False,
+                                            store_cddf_inputs=True),
+                )
             launches = launch_counts()
         finally:
             evidence.sample_log_likelihoods, evidence.sample_log_likelihoods_pair = (
@@ -2345,8 +2470,9 @@ def bench_phase(smi: str, seed: int) -> dict:
                   for name, calls in seen.items()}
         return result_arrays(res), launches, inputs, redraws
 
-    sums_args = []
-    runs = {batch: chain(batch, sums_args if batch == B else None) for batch in BENCH_CHAIN_BATCHES}
+    sums_args, reducer = [], []
+    runs = {batch: chain(batch, *((sums_args, reducer) if batch == B else ()))
+            for batch in BENCH_CHAIN_BATCHES}
     big, big_launches, big_in, big_redraws = runs[B]
     for batch, (_, launches, _, _) in runs.items():
         if launches != (B // batch,) * 5:
@@ -2376,6 +2502,35 @@ def bench_phase(smi: str, seed: int) -> dict:
             f"launches {COUNTED} {big_launches} and {runs[batch][1]} ({smi})")
         if diff:
             fail(f"phase 10: the chain at batch {B} is not bit-identical to batch {batch}")
+    # ---- the chain at S = ODD_S (ROADMAP C.1): a (B, S) float32 or float64
+    # row starts on a 16-byte boundary only every fourth row, and the CDDF
+    # sums' last chunk is not full; bit-identical at two batches
+    odd = bench.driver_workload(ODD_S_SPECTRA, ODD_S, P, k)
+    odd_runs = {}
+    t_odd = time.perf_counter()
+    for batch in (ODD_S_SPECTRA, BATCH):
+        reset_counts()
+        res = sharded_multi.process_spectra_multi_sharded(
+            odd.model, odd.offsets, odd.nhis, odd.spectra, odd.prior_z, odd.prior_num,
+            config=ShardedRunConfig(per_device_batch=batch, dtype="float32",
+                                    store_sample_likelihoods=False, store_cddf_inputs=True),
+        )
+        odd_runs[batch] = (result_arrays(res), launch_counts())
+    t_odd = time.perf_counter() - t_odd
+    (odd_big, odd_big_l), (odd_small, odd_small_l) = odd_runs[ODD_S_SPECTRA], odd_runs[BATCH]
+    odd_diff = sorted(n for n in odd_big if not np.array_equal(
+        odd_big[n], odd_small[n], equal_nan=odd_big[n].dtype.kind == "f"))
+    say(f"phase 10: fused lean chain (cuda, R=4, CDDF inputs) at S={ODD_S} on {ODD_S_SPECTRA} "
+        f"spectra, batch {ODD_S_SPECTRA} vs batch {BATCH}: "
+        + ("bit-identical in every array (CDDF inputs included)" if not odd_diff
+           else f"differs in {', '.join(odd_diff)}")
+        + f"; launches {COUNTED} {odd_big_l} and {odd_small_l}; {t_odd:.1f} s for both ({smi})")
+    if odd_diff:
+        fail(f"phase 10: the chain at S={ODD_S} differs between batch {ODD_S_SPECTRA} and {BATCH}")
+    if odd_big_l != (1,) * 5 or odd_small_l != (ODD_S_SPECTRA // BATCH,) * 5:
+        fail(f"phase 10: the chain at S={ODD_S} launched {odd_big_l} and {odd_small_l}")
+    del odd, odd_runs, odd_big, odd_small
+
     # the plain redraw (backend="torch") replayed op by op on the inputs the
     # chain gave the kernel: where its own result depends on the batch
     redraw_steps = redraw_divergence(big_redraws, runs[BATCH][3])
@@ -2402,20 +2557,34 @@ def bench_phase(smi: str, seed: int) -> dict:
     # its first 128 rows: its checks and its time beside the plain sums'
     args = sums_args[0]
     sums_bench = cddf_sums_check(args, "phase 10", smi)
+    runs_mean, runs_most = longest_runs(args)
     rows = lambda n: [a[:n] if torch.is_tensor(a) and a.dim() == 2 else a for a in args]
     n_bins = args[-2] * (args[-1] + 1) + 1
-    sums_times, sums_bounds = {}, {}
+    sums_times, sums_bounds, sums_library, splits = {}, {}, {}, {}
     for n in (BATCH, B):
         part = rows(n)
         sums_times[n] = (cuda_ms(lambda: cddf_inputs.cddf_sums(*part), 10),
                          cuda_ms(lambda: cddf_inputs.cddf_sums_reference(*part), 5),
                          cuda_ms(lambda: cddf_inputs.cddf_sums(*part), 10))
         sums_bounds[n] = cddf_bound(n, S, n_bins)
-        say(f"phase 10: CDDF sums kernel at B={n} S={S} ({cddf_inputs.N_CHANNELS} x {n_bins} bins): "
-            f"{sums_times[n][0]:.4f} / {sums_times[n][2]:.4f} ms, the plain scatter_add_ sums "
-            f"{sums_times[n][1]:.4f} ms; bound {sums_bounds[n][0]:.4f} ms by {sums_bounds[n][1]} "
+        sums_library[n] = scatter_add_ms(part, cddf_inputs.cddf_sums(*part)[0])
+        sums_host = host_ms(lambda: cddf_inputs.cddf_sums(*part))
+        say(f"phase 10: CDDF sums kernel at B={n} S={S} ({cddf_inputs.N_CHANNELS} x {n_bins} bins, "
+            f"{cddf_inputs.cddf_chunk_plan(S).n_chunks} chunks a row; the longest run of equal "
+            f"bases a row {runs_mean:.1f} columns on average, {runs_most} at most): "
+            f"{sums_times[n][0]:.4f} / {sums_times[n][2]:.4f} ms (the host issues a call in "
+            f"{sums_host:.4f} ms), the plain scatter_add_ sums {sums_times[n][1]:.4f} ms, "
+            f"the histogram as one scatter_add_ of prebuilt values (atomics) {sums_library[n]:.4f} "
+            f"ms; bound {sums_bounds[n][0]:.4f} ms by {sums_bounds[n][1]} "
             f"({sums_bounds[n][0] / sums_times[n][0]:.2f} of it reached) ({smi})")
-    del args, sums_args, runs, big_in, big_redraws
+        splits[n] = reducer_split(reducer, sums_times[n][0], n)
+        sp = splits[n]
+        say(f"phase 10: the CDDF reducer on the chain's batch at B={n}, device ms by op (CUDA "
+            f"events): whole {sp['total_ms']:.4f}; sums kernel {sp['sums_ms']:.4f}; the two stable "
+            f"float64 sorts of _top_k {' and '.join(f'{x:.4f}' for x in sp['sort_ms'])}; the rest "
+            f"(mean/exp/log and the other passes) {sp['rest_ms']:.4f}; its outputs to pinned host "
+            f"memory {sp['copy_to_host_ms']:.4f} ({smi})")
+    del args, sums_args, reducer, runs, big_in, big_redraws
 
     # ---- the null evidence kernel on the bench's spectra: against its
     # plain version and float64, each row alone, shifted and permuted, its
@@ -2447,20 +2616,22 @@ def bench_phase(smi: str, seed: int) -> dict:
                                           slice(1, 257), slice(256, 512), perm))
     null_moved = moves(low_rank_mvn.null_log_likelihoods, null_out)
     plain_moved = moves(low_rank_mvn.null_log_likelihoods_reference, null_plain)
-    null_times, null_bounds = {}, {}
+    null_times, null_bounds, null_host = {}, {}, {}
     for n in (BATCH, B):
         part = [a[:n] for a in null_args]
         null_times[n] = (cuda_ms(lambda: low_rank_mvn.null_log_likelihoods(*part), 10),
                          cuda_ms(lambda: low_rank_mvn.null_log_likelihoods_reference(*part), 5),
                          cuda_ms(lambda: low_rank_mvn.null_log_likelihoods(*part), 10))
         null_bounds[n] = null_bound(n, P, k)
+        null_host[n] = host_ms(lambda: low_rank_mvn.null_log_likelihoods(*part))
     say(f"phase 10: null evidence kernel on the bench's {B} spectra (P={P}, k={k}): vs plain f32 "
         f"normalized {null_err[0]:.3e}, abs {null_err[1]:.3e}; vs f64 normalized {null_err64[0]:.3e} "
         f"(plain f32 {plain_err64[0]:.3e}); rows at B=1, 128, 256 shifted by one and permuted that "
         f"differ from the B={B} launch: kernel {null_moved}, plain version {plain_moved}; "
-        + "; ".join(f"B={n}: {null_times[n][0]:.4f} / {null_times[n][2]:.4f} ms, the plain "
-                    f"sequence {null_times[n][1]:.4f} ms, bound {null_bounds[n][0]:.4f} ms by "
-                    f"{null_bounds[n][1]}" for n in (BATCH, B))
+        + "; ".join(f"B={n}: {null_times[n][0]:.4f} / {null_times[n][2]:.4f} ms (the host issues "
+                    f"a call in {null_host[n]:.4f} ms), the plain sequence {null_times[n][1]:.4f} "
+                    f"ms, bound {null_bounds[n][0]:.4f} ms by {null_bounds[n][1]}"
+                    for n in (BATCH, B))
         + f" ({smi})")
     if not null_err[0] < NORMALIZED_BOUND or not null_err64[0] < F64_BOUND:
         fail(f"phase 10: the null evidence kernel disagrees with its plain version "
@@ -2474,7 +2645,9 @@ def bench_phase(smi: str, seed: int) -> dict:
             "redraw": {**redraw_bench, "ms": redraw_b[0], "ms_2": redraw_b[2],
                        "plain_ms": redraw_b[1], "bound_ms": redraw_b_bound[0],
                        "bound_by": redraw_b_bound[1]},
-            "sums": {**sums_bench, "times": sums_times, "bounds": sums_bounds},
+            "sums": {**sums_bench, "times": sums_times, "bounds": sums_bounds,
+                     "library": sums_library, "split": splits,
+                     "longest_run_mean": runs_mean, "longest_run_max": runs_most},
             "null": {"max_abs_err": null_err[1], "max_normalized_err": null_err[0],
                      "normalized_err_vs_f64": null_err64[0],
                      "plain_normalized_err_vs_f64": plain_err64[0],
@@ -3107,6 +3280,8 @@ def main() -> None:
             "bound_ms": redraw_bounds[128][0],
             "bound_by": redraw_bounds[128][1],
             "library_ms": None,
+            "library_call": "none: no one PyTorch call computes a CDF's grid counts and the "
+                            "draws at kvec",
             "ms_b1024": bp["redraw"]["ms"],
             "plain_ms_b1024": bp["redraw"]["plain_ms"],
             "bound_ms_b1024": bp["redraw"]["bound_ms"],
@@ -3128,10 +3303,16 @@ def main() -> None:
             "plain_ms": bp["sums"]["times"][BATCH][1],
             "bound_ms": bp["sums"]["bounds"][BATCH][0],
             "bound_by": bp["sums"]["bounds"][BATCH][1],
-            "library_ms": None,
+            "library_ms": bp["sums"]["library"][BATCH],
+            "library_call": "one float64 scatter_add_ of the prebuilt channel values at their "
+                            "prebuilt flat bins: the same histogram with the card's atomics",
             "ms_b1024": bp["sums"]["times"][BENCH_BATCH][0],
             "plain_ms_b1024": bp["sums"]["times"][BENCH_BATCH][1],
             "bound_ms_b1024": bp["sums"]["bounds"][BENCH_BATCH][0],
+            "library_ms_b1024": bp["sums"]["library"][BENCH_BATCH],
+            "reducer_split_ms": bp["sums"]["split"],
+            "longest_run_of_equal_bases": [bp["sums"]["longest_run_mean"],
+                                           bp["sums"]["longest_run_max"]],
             "card": smi,
         },
         {
@@ -3157,6 +3338,8 @@ def main() -> None:
             "bound_ms": bp["null"]["bounds"][BATCH][0],
             "bound_by": bp["null"]["bounds"][BATCH][1],
             "library_ms": None,
+            "library_call": "none: no one PyTorch call computes a masked low-rank Woodbury "
+                            "log-density",
             "ms_b1024": bp["null"]["times"][BENCH_BATCH][0],
             "plain_ms_b1024": bp["null"]["times"][BENCH_BATCH][1],
             "bound_ms_b1024": bp["null"]["bounds"][BENCH_BATCH][0],

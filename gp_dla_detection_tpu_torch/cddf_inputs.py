@@ -33,6 +33,10 @@ the (z, log N_HI) grids, in :func:`cddf_sums`:
   over the base samples and over the flat index ``zloc * (n_lnhi + 1) +
   lnhi_bin``, where the JAX package runs one masked matmul per z bin.
   On the card their atomics add in an order that changes from run to run.
+- :func:`cddf_chunk_plan` is the kernel's split of a row into chunks
+  (a function of S and, for the runs of equal bases, of the row's bases
+  alone), and :func:`cddf_sums_chunked` the plain version in the
+  kernel's order of additions, for the tests.
 - ``launch_count`` counts the kernel launches.
 """
 
@@ -50,7 +54,10 @@ import torch
 __all__ = [
     "CDDFReductionSpec",
     "CDDFInputs",
+    "CDDFChunkPlan",
+    "cddf_chunk_plan",
     "cddf_sums",
+    "cddf_sums_chunked",
     "cddf_sums_reference",
     "launch_count",
     "make_cddf_reducer",
@@ -71,6 +78,13 @@ CH_SMALL2_B = 7     # sum p2,        small, 2nd DLA,  grid B
 N_CHANNELS = 8
 
 launch_count = 0   # cddf_sums kernel launches
+
+# The kernel's split of a row: at most CHUNKS_MAX chunks (the blocks of one
+# thread block cluster, the portable size), each of at least CHUNK_MIN
+# samples.  Fixed by S alone, so that a row's sums never depend on the
+# batch, the card or the stream.
+CHUNKS_MAX = 8
+CHUNK_MIN = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,6 +329,80 @@ def cddf_sums_reference(
     return acc, hist
 
 
+@dataclasses.dataclass(frozen=True)
+class CDDFChunkPlan:
+    """How the CDDF sums kernel splits a row of S samples.
+
+    ``n_chunks`` chunks of ``chunk_len`` samples (the last may be
+    shorter); ``sample_bounds`` (n_chunks + 1,) their edges on the sample
+    axis, where chunk c bins samples [sample_bounds[c],
+    sample_bounds[c + 1]).  ``run_bounds`` (B, n_chunks + 1), given the
+    bases: chunk c sums acc's runs of equal bases that start at the
+    ``base_order`` positions [run_bounds[b, c], run_bounds[b, c + 1]),
+    each edge moved from c * chunk_len to the next run start, so that no
+    run straddles two chunks (None without the bases)."""
+
+    n_chunks: int
+    chunk_len: int
+    sample_bounds: np.ndarray
+    run_bounds: np.ndarray | None = None
+
+
+def cddf_chunk_plan(S: int, base=None, base_order=None) -> CDDFChunkPlan:
+    """The CDDF sums kernel's chunks for rows of ``S`` samples: chunk_len
+    = max(CHUNK_MIN, ceil(S / CHUNKS_MAX)), n_chunks = ceil(S /
+    chunk_len).  With ``base`` (B, S) and ``base_order`` (S,), also each
+    row's run edges along ``base_order`` (:class:`CDDFChunkPlan`); a row's
+    edges depend on that row's bases alone."""
+    if S < 1:
+        raise ValueError(f"S must be >= 1, got {S}")
+    chunk_len = max(CHUNK_MIN, -(-S // CHUNKS_MAX))
+    n_chunks = -(-S // chunk_len)
+    sample_bounds = np.minimum(np.arange(n_chunks + 1, dtype=np.int64) * chunk_len, S)
+    run_bounds = None
+    if base is not None:
+        keys = np.asarray(torch.as_tensor(base).cpu())[:, np.asarray(torch.as_tensor(base_order).cpu())]
+        run_bounds = np.full((keys.shape[0], n_chunks + 1), S, np.int64)
+        for b, row in enumerate(keys):
+            first = np.flatnonzero(np.r_[True, row[1:] != row[:-1]])   # the row's run starts
+            at = np.searchsorted(first, sample_bounds[:-1])
+            run_bounds[b, :-1] = np.where(at < len(first), first[np.minimum(at, len(first) - 1)], S)
+    return CDDFChunkPlan(n_chunks, chunk_len, sample_bounds, run_bounds)
+
+
+def cddf_sums_chunked(
+    p, p2s, base, zloc, base_order, lh_a, lh_b, nu, nu2,
+    p_sample_min: float, p_switch: float, n_z_window: int, n_lnhi: int,
+):
+    """:func:`cddf_sums_reference` in the kernel's order of additions, on
+    the CPU (where ``scatter_add_`` adds each slot's values in index
+    order): acc's columns along ``base_order``; each chunk's samples of a
+    bin in ascending order from 0, the chunks' partials added in chunk
+    order."""
+    plan = cddf_chunk_plan(p.shape[1])
+    acc = torch.zeros_like(p)
+    acc.scatter_add_(1, base[:, base_order], p2s[:, base_order])
+    W, nl = n_z_window, n_lnhi
+    zero = torch.zeros((), dtype=torch.float64, device=p.device)
+    ps = torch.where((p > p_sample_min) & (p < p_switch), p, zero)
+    pvar = p * torch.clamp(1.0 - p, min=0.0)
+    vals = torch.stack([ps, p, p * nu, pvar, pvar * nu2, ps, acc, acc], dim=1)
+    ch = torch.arange(N_CHANNELS, device=p.device)
+    grid_b = (ch == CH_SMALL_B) | (ch == CH_SMALL2_B)
+    lh = torch.where(grid_b[:, None], lh_b[None, :], lh_a[None, :])
+    dump = W * (nl + 1)
+    in_win = (zloc >= 0) & (zloc < W)
+    flat = torch.where(in_win[:, None, :], zloc[:, None, :] * (nl + 1) + lh[None, :, :],
+                       torch.full_like(zloc[:, None, :], dump))
+    hist = None
+    for lo, hi in zip(plan.sample_bounds[:-1], plan.sample_bounds[1:]):
+        part = torch.zeros((p.shape[0], N_CHANNELS, dump + 1), dtype=torch.float64,
+                           device=p.device)
+        part.scatter_add_(2, flat[:, :, lo:hi], vals[:, :, lo:hi])
+        hist = part if hist is None else hist + part
+    return acc, hist
+
+
 def cddf_sums(
     p, p2s, base, zloc, base_order, lh_a, lh_b, nu, nu2,
     p_sample_min: float, p_switch: float, n_z_window: int, n_lnhi: int,
@@ -336,8 +424,10 @@ def cddf_sums(
 
     CUDA tensors: ``csrc/cddf.cu``.  It adds each acc entry's columns in
     ``base_order`` (in one run each when ``base`` ascends along it, as the
-    redraw's bases do) and each bin's samples in ascending order, so the
-    result does not depend on the batch or the run; anything it cannot
+    redraw's bases do), and each bin's samples in ascending order within
+    each of :func:`cddf_chunk_plan`'s chunks, the chunks' partials in
+    chunk order (:func:`cddf_sums_chunked`), so the result does not
+    depend on the batch or the run; anything it cannot
     take (another dtype, shape or device, a grid whose bins exceed shared
     memory) raises, as does a failed build or launch, and a base outside
     [0, S) stops the kernel, as an index outside a tensor does in PyTorch.
@@ -359,16 +449,19 @@ def cddf_sums(
                 f"the CUDA CDDF sums take {shape} {dtype} tensors on {p.device}; got "
                 f"{tuple(t.shape)} {t.dtype} on {t.device}"
             )
-    if not 1 <= S < 1 << 31 or B > (1 << 31) - 1:
+    plan = cddf_chunk_plan(max(S, 1))
+    if not 1 <= S < 1 << 31 or B * plan.n_chunks > (1 << 31) - 1:
         raise ValueError(f"(B, S) = {(B, S)} outside the kernel's grid")
     built = _sums_library()
+    if plan.n_chunks > built.lib.gpdla_cddf_max_chunks():
+        raise ValueError(f"{plan.n_chunks} chunks a row, beyond the kernel's cluster")
     with torch.cuda.device(p.device):
         need = built.lib.gpdla_cddf_shared_bytes(W, nl)
         room = built.lib.gpdla_cddf_max_shared_bytes()
     if need > room:
         raise ValueError(
-            f"the CUDA CDDF sums hold a row's {N_CHANNELS} x {W * (nl + 1) + 1} bins in "
-            f"shared memory: {need} bytes, beyond the {room} a block may take"
+            f"the CUDA CDDF sums hold a chunk's partial {N_CHANNELS} x {W * (nl + 1) + 1} bins "
+            f"and a tile's sort in shared memory: {need} bytes, beyond the {room} a block may take"
         )
     acc = torch.empty((B, S), dtype=torch.float64, device=p.device)
     hist = torch.empty((B, N_CHANNELS, W * (nl + 1) + 1), dtype=torch.float64, device=p.device)
@@ -378,7 +471,7 @@ def cddf_sums(
             stream = torch.cuda.current_stream(p.device).cuda_stream
             err = built.lib.gpdla_cddf_sums_f64(
                 *[t.data_ptr() for t in tensors], acc.data_ptr(), hist.data_ptr(), B, S, W, nl,
-                float(p_sample_min), float(p_switch), stream,
+                plan.n_chunks, plan.chunk_len, float(p_sample_min), float(p_switch), stream,
             )
         if err != 0:
             msg = built.lib.gpdla_cddf_error_string(err).decode()
@@ -394,13 +487,14 @@ def _sums_library():
 
     built = _build.load_library("cddf")
     built.lib.gpdla_cddf_sums_f64.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_double] * 2 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_double] * 2 + [ctypes.c_void_p]
     )
     built.lib.gpdla_cddf_sums_f64.restype = ctypes.c_int
     built.lib.gpdla_cddf_shared_bytes.argtypes = [ctypes.c_int] * 2
     built.lib.gpdla_cddf_shared_bytes.restype = ctypes.c_size_t
-    built.lib.gpdla_cddf_max_shared_bytes.argtypes = []
-    built.lib.gpdla_cddf_max_shared_bytes.restype = ctypes.c_int
+    for name in ("max_shared_bytes", "max_chunks"):
+        getattr(built.lib, f"gpdla_cddf_{name}").argtypes = []
+        getattr(built.lib, f"gpdla_cddf_{name}").restype = ctypes.c_int
     built.lib.gpdla_cddf_error_string.argtypes = [ctypes.c_int]
     built.lib.gpdla_cddf_error_string.restype = ctypes.c_char_p
     return built

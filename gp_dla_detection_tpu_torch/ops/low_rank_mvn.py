@@ -17,8 +17,9 @@ tensors it runs the plain version, :func:`null_log_likelihoods_reference`
 (:func:`log_mvnpdf_low_rank`).  The kernel adds each row's sums in an
 order fixed by the row alone; the plain version's ``torch.sum`` and
 batched products on the card do not (a spectrum's value there can move
-with the batch size and its position in the batch).  ``launch_count``
-counts the kernel's launches.
+with the batch size and its position in the batch).  The kernel splits
+the pixels into slices, :func:`null_slice_plan` (a function of P
+alone).  ``launch_count`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -38,11 +39,18 @@ __all__ = [
     "log_mvnpdf_low_rank",
     "null_log_likelihoods",
     "null_log_likelihoods_reference",
+    "null_slice_plan",
     "pair_products",
     "woodbury_log_p",
 ]
 
 launch_count = 0   # null_log_likelihoods kernel launches
+
+# The kernel's split of the pixel axis: at most SLICES_MAX slices (one per
+# warp of a block), each a multiple of SLICE_ALIGN pixels (the pixels a
+# warp stages at a time) but the last.
+SLICES_MAX = 8
+SLICE_ALIGN = 32
 
 LOG_2PI = 1.8378770664093454836  # log(2*pi)
 
@@ -171,15 +179,30 @@ def log_mvnpdf_low_rank(y, mu, M, d, mask=None):
     return -0.5 * (quad0 - bBb + logdet_d + logdet_B + n_eff * LOG_2PI)
 
 
+def null_slice_plan(P: int) -> tuple[int, int]:
+    """The null evidence kernel's pixel slices for P pixels, ``(n_slices,
+    slice_len)``: slice_len = ceil(ceil(P / SLICES_MAX) / SLICE_ALIGN)
+    SLICE_ALIGN, n_slices = ceil(P / slice_len); slice s holds the pixels
+    [s slice_len, min(P, (s + 1) slice_len)).  Fixed by P alone, so that a
+    spectrum's sums never depend on the batch."""
+    if P < 1:
+        raise ValueError(f"P must be >= 1, got {P}")
+    slice_len = -(-(-(-P // SLICES_MAX)) // SLICE_ALIGN) * SLICE_ALIGN
+    return -(-P // slice_len), slice_len
+
+
 def null_log_likelihoods(y, mu, M, d, mask):
     """log N(y; mu, M M' + diag(d)) per row over the pixels where
     ``mask`` is True: ``y``, ``mu``, ``d``, ``mask`` (B, P), ``M``
     (B, P, k); returns (B,).
 
-    CUDA tensors: ``csrc/null_evidence.cu``, float32 only; anything it
-    cannot take (another dtype or shape, tensors on several devices, k
-    beyond the kernel's) raises, as does a failed build or launch.  CPU
-    tensors: :func:`null_log_likelihoods_reference`.
+    CUDA tensors: ``csrc/null_evidence.cu``, float32 only, each slice of
+    :func:`null_slice_plan` summed in pixel order, the slices in slice
+    order.  It reads the rows at their strides (M with contiguous columns
+    and a pixel stride of at most 24 elements, else a contiguous copy of
+    M); anything it cannot take (another dtype or shape, tensors on
+    several devices, k beyond the kernel's) raises, as does a failed
+    build or launch.  CPU tensors: :func:`null_log_likelihoods_reference`.
     """
     if not y.is_cuda:
         return null_log_likelihoods_reference(y, mu, M, d, mask)
@@ -205,13 +228,23 @@ def null_log_likelihoods(y, mu, M, d, mask):
                          f"{built.lib.gpdla_null_evidence_max_k()}, got {k}")
     if P < 1 or B > (1 << 31) - 1:
         raise ValueError(f"(B, P) = {(B, P)} outside the kernel's grid")
+    n_slices, slice_len = null_slice_plan(P)
+    if n_slices > built.lib.gpdla_null_evidence_max_slices():
+        raise ValueError(f"{n_slices} pixel slices, beyond the kernel's warps")
     out = torch.empty(B, dtype=torch.float32, device=y.device)
     if B:
-        args = [t.contiguous() for t in (y, mu, M, d, mask.to(torch.bool))]
+        # the rows are read at their strides (the interpolated mu and M are
+        # columns of one tensor); M's columns must be contiguous, its
+        # pixel stride at most the kernel's
+        if M.stride(2) != 1 or not k <= M.stride(1) <= built.lib.gpdla_null_evidence_max_pixel_stride():
+            M = M.contiguous()
+        vecs = [y, mu, d, mask.to(torch.bool)]
+        strides = (ctypes.c_longlong * 10)(*[x for t in vecs + [M] for x in t.stride()[:2]])
         with torch.cuda.device(y.device):
             stream = torch.cuda.current_stream(y.device).cuda_stream
             err = built.lib.gpdla_null_evidence_f32(
-                *[t.data_ptr() for t in args], out.data_ptr(), B, P, k, stream
+                y.data_ptr(), mu.data_ptr(), M.data_ptr(), d.data_ptr(), vecs[3].data_ptr(),
+                out.data_ptr(), strides, B, P, k, slice_len, n_slices, stream,
             )
         if err != 0:
             msg = built.lib.gpdla_null_evidence_error_string(err).decode()
@@ -231,11 +264,13 @@ def _null_library():
 
     built = _build.load_library("null_evidence")
     built.lib.gpdla_null_evidence_f32.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p]
     )
     built.lib.gpdla_null_evidence_f32.restype = ctypes.c_int
-    built.lib.gpdla_null_evidence_max_k.argtypes = []
-    built.lib.gpdla_null_evidence_max_k.restype = ctypes.c_int
+    for name in ("max_k", "max_slices", "max_pixel_stride"):
+        getattr(built.lib, f"gpdla_null_evidence_{name}").argtypes = []
+        getattr(built.lib, f"gpdla_null_evidence_{name}").restype = ctypes.c_int
     built.lib.gpdla_null_evidence_error_string.argtypes = [ctypes.c_int]
     built.lib.gpdla_null_evidence_error_string.restype = ctypes.c_char_p
     return built

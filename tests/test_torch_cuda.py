@@ -488,6 +488,79 @@ def test_cddf_sums_kernel_matches_plain_and_repeats(device, structured):
     assert torch.equal(ap, acc[perm]) and torch.equal(hp, hist[perm])
 
 
+def run_inputs(device, B=5, S=3001, seed=4):
+    """The sums' inputs with long runs of equal bases along the order (a
+    peaked posterior redrawn: a few bases take most grid cells), at an S
+    that is not a multiple of 4."""
+    from gp_dla_detection_tpu_torch.cddf_inputs import CDDFReductionSpec
+
+    spec = CDDFReductionSpec()
+    rng = np.random.default_rng(seed)
+    grid = 751
+    cols = rng.integers(0, grid, S)
+    # base of grid cell g: ascending in g, with runs of up to 120 cells
+    n_cells = min(24, S)
+    cells = np.sort([rng.choice(S, n_cells, replace=False) for _ in range(B)], axis=1)
+    g = np.take_along_axis(cells, np.sort(rng.integers(0, n_cells, (B, grid)), axis=1), axis=1)
+    base = torch.as_tensor(np.take_along_axis(g, np.broadcast_to(cols, (B, S)), axis=1),
+                           device=device)
+    p = torch.as_tensor(rng.dirichlet(np.full(S, 0.05), B) * rng.uniform(0, 1, (B, 1)),
+                        device=device)
+    p2s = torch.as_tensor(np.where(rng.uniform(size=(B, S)) < 0.5,
+                                   rng.uniform(1e-4, 0.25, (B, S)), 0.0), device=device)
+    zloc = torch.as_tensor(rng.integers(-2, spec.n_z_window + 2, (B, S)), device=device)
+    lnhi = rng.uniform(19.8, 23.2, S)
+    tab = lambda a, dt: torch.as_tensor(np.asarray(a), device=device).to(dt)
+    nu = 10.0 ** (lnhi - spec.nu_log_offset)
+    return (p, p2s, base, zloc, tab(np.argsort(cols, kind="stable"), torch.int64),
+            tab(spec.lnhi_bin_index(lnhi, "a"), torch.int64),
+            tab(spec.lnhi_bin_index(lnhi, "b"), torch.int64),
+            tab(nu, torch.float64), tab(nu**2, torch.float64),
+            spec.p_sample_min, spec.p_switch, spec.n_z_window, spec.n_lnhi)
+
+
+def test_cddf_sums_kernel_chunks_runs_across_their_edges(device):
+    """Runs of equal bases across the chunk edges, S = 3001: the kernel in
+    the order of ``cddf_sums_chunked`` (acc and hist bit for bit), within
+    1e-12 of the plain sums, and each row alone and permuted the same."""
+    from gp_dla_detection_tpu_torch import cddf_inputs
+
+    args = run_inputs(device)
+    S = args[0].shape[1]
+    plan = cddf_inputs.cddf_chunk_plan(S, args[2], args[4])
+    assert plan.n_chunks == 8 and S % 4
+    # the data covers what it is for: chunk edges inside runs, moved
+    assert (plan.run_bounds[:, 1:-1] != plan.sample_bounds[None, 1:-1]).any()
+    acc, hist = cddf_inputs.cddf_sums(*args)
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    want_acc, want_hist = cddf_inputs.cddf_sums_chunked(*cpu)
+    assert torch.equal(acc.cpu(), want_acc)
+    assert torch.equal(hist.cpu(), want_hist)
+    ref_acc, ref_hist = cddf_inputs.cddf_sums_reference(*args)
+    for got, ref in ((acc, ref_acc), (hist, ref_hist)):
+        assert float(((got - ref).abs() / ref.abs().clamp(min=1e-300)).max()) <= 1e-12
+    B = acc.shape[0]
+    perm = torch.as_tensor(np.random.default_rng(2).permutation(B), device=device)
+    for rows in (slice(1, 2), slice(2, 5), perm):
+        part = [a[rows] if torch.is_tensor(a) and a.dim() == 2 else a for a in args]
+        a1, h1 = cddf_inputs.cddf_sums(*part)
+        assert torch.equal(a1, acc[rows]) and torch.equal(h1, hist[rows])
+
+
+@pytest.mark.parametrize("S", [1, 257, 2051])
+def test_cddf_sums_kernel_small_and_ragged_rows(device, S):
+    """One chunk (S = 1), a second chunk of one sample (S = 257) and eight
+    chunks of 257 with a last of 252 (S = 2051): the kernel against its
+    plain version and its own order."""
+    from gp_dla_detection_tpu_torch import cddf_inputs
+
+    args = run_inputs(device, B=3, S=S, seed=S)
+    acc, hist = cddf_inputs.cddf_sums(*args)
+    want_acc, want_hist = cddf_inputs.cddf_sums_chunked(
+        *[a.cpu() if torch.is_tensor(a) else a for a in args])
+    assert torch.equal(acc.cpu(), want_acc) and torch.equal(hist.cpu(), want_hist)
+
+
 def test_cddf_sums_kernel_refuses_what_it_cannot_take(device):
     from gp_dla_detection_tpu_torch import cddf_inputs
 
@@ -506,15 +579,19 @@ def test_cddf_sums_kernel_refuses_what_it_cannot_take(device):
         cddf_inputs.cddf_sums(*bad)
 
 
-def test_fused_chain_does_not_depend_on_the_batch(device):
+def chain_batches_agree(device, batches, samples=None):
     """The fused lean chain with the CDDF inputs on the card (the kernels,
-    R = 4) gives the same bits at every batch size and in every run."""
+    R = 4) at each of ``batches``: the same bits as at batch 11, the
+    kernels launched once per batch.  ``samples``: (offsets, nhis) in
+    place of the problem's own."""
     import torch_distributed_worker as worker
     from gp_dla_detection_tpu_torch import cddf_inputs
     from gp_dla_detection_tpu_torch.ops import redraw
     from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi_lean
 
     params, model, spectra, offsets, nhis, prior_z, _ = worker.port_problem()
+    if samples is not None:
+        offsets, nhis = samples
     model = model.to(device=device, dtype=torch.float32)
 
     def run(batch):
@@ -530,10 +607,26 @@ def test_fused_chain_does_not_depend_on_the_batch(device):
         return fields
 
     ref = run(11)
-    for batch in (1, 2, 4, 11):
+    for batch in batches:
         got = run(batch)
         for k, v in ref.items():
             np.testing.assert_array_equal(got[k], v, err_msg=f"batch {batch}: {k}")
+
+
+def test_fused_chain_does_not_depend_on_the_batch(device):
+    """The fused lean chain with the CDDF inputs on the card (the kernels,
+    R = 4) gives the same bits at every batch size and in every run."""
+    chain_batches_agree(device, (1, 2, 4, 11))
+
+
+def test_fused_chain_does_not_depend_on_the_batch_at_an_odd_S(device):
+    """The same at S = 317: no float32 or float64 row of the (B, S)
+    tensors but the first starts on a 16-byte boundary, and the CDDF sums
+    split the samples into two chunks, the second not full."""
+    import torch_distributed_worker as worker
+
+    offsets, nhis = worker.samples_320()
+    chain_batches_agree(device, (1, 3, 11), (offsets[:317], nhis[:317]))
 
 
 def null_inputs(device, B=64, P=1274, k=20, seed=0):
@@ -565,6 +658,51 @@ def test_null_evidence_kernel_matches_plain_and_the_batch(device):
     perm = torch.as_tensor(np.random.default_rng(3).permutation(64), device=device)
     for rows in (slice(0, 1), slice(1, 2), slice(1, 57), perm):
         assert torch.equal(low_rank_mvn.null_log_likelihoods(*[a[rows] for a in args]), out[rows])
+
+
+@pytest.mark.parametrize("P,k", [(1273, 21), (1273, 20), (37, 3), (1, 1)])
+def test_null_evidence_kernel_at_odd_strides(device, P, k):
+    """P k not a multiple of 4 (each spectrum's M starts off a 16-byte
+    boundary but every fourth), slices of 160 pixels with a short last one
+    (P = 1273), fewer slices than warps (P = 37) and one pixel: against
+    the plain version and float64; each row alone, shifted and permuted
+    the same."""
+    from gp_dla_detection_tpu_torch.ops import low_rank_mvn
+
+    args = null_inputs(device, B=13, P=P, k=k, seed=P + k)
+    out = low_rank_mvn.null_log_likelihoods(*args)
+    plain = low_rank_mvn.null_log_likelihoods_reference(*args)
+    exact = low_rank_mvn.null_log_likelihoods_reference(*[a.double() if a.is_floating_point()
+                                                          else a for a in args])
+    assert normalized_err(out, plain) < BOUND
+    err = lambda x: float((x.double() - exact).abs().max())
+    assert err(out) <= 2 * err(plain) + 1e-4, (err(out), err(plain))
+    perm = torch.as_tensor(np.random.default_rng(5).permutation(13), device=device)
+    for rows in (slice(0, 1), slice(1, 2), slice(3, 4), slice(1, 12), perm):
+        assert torch.equal(low_rank_mvn.null_log_likelihoods(*[a[rows] for a in args]), out[rows])
+
+
+def test_null_evidence_kernel_reads_strided_inputs(device):
+    """mu and M as the model's interpolation gives them, columns of one
+    (B, P, k + 2) tensor, and y a column of a wider one: the same bits as
+    from contiguous copies; M whose columns lie apart, or whose pixel
+    stride is beyond the kernel's, is copied first: the same bits."""
+    from gp_dla_detection_tpu_torch.ops import low_rank_mvn
+
+    y, mu, M, d, mask = null_inputs(device, B=9, P=1273, k=20, seed=11)
+    want = low_rank_mvn.null_log_likelihoods(y, mu, M, d, mask)
+    packed = torch.cat([mu[..., None], torch.zeros_like(mu)[..., None], M], dim=-1)
+    mu_s, M_s = packed[..., 0], packed[..., 2:]
+    assert M_s.stride() == (1273 * 22, 22, 1) and mu_s.stride() == (1273 * 22, 22)
+    y_s = torch.stack([y, y], dim=-1)[..., 1]
+    for rows in (slice(None), slice(1, 2), slice(3, 8)):
+        got = low_rank_mvn.null_log_likelihoods(y_s[rows], mu_s[rows], M_s[rows], d[rows],
+                                                mask[rows])
+        assert torch.equal(got, want[rows])
+    apart = M.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(low_rank_mvn.null_log_likelihoods(y, mu, apart, d, mask), want)
+    wide = torch.cat([M, torch.zeros_like(M)], dim=-1)[..., :20]
+    assert torch.equal(low_rank_mvn.null_log_likelihoods(y, mu, wide, d, mask), want)
 
 
 def test_null_evidence_kernel_refuses_what_it_cannot_take(device):
