@@ -47,11 +47,15 @@ Phases, each reported on its own line; any failure exits non-zero:
    (kernels, other device ops, device idle, the host's wait) beside the
    first run's, with the host ops that the first run paid more for; the
    redraw kernel (csrc/redraw.cu) on the inputs the chain gave it: its
-   CDF within twice the plain float32 cumsum's distance from float64, its
-   draws equal to the grid counts of its own CDF, its rows bit-identical
-   at B = 1 and 128 and permuted, the draws that differ from the plain
-   version's counted (knife edges), its time beside the plain sequence's
-   and its bound; then at R = 1 (depth 1 and the default in turns),
+   CDF within twice the plain float32 cumsum's distance from float64 and
+   bit for bit ``posterior_cdf_in_kernel_order`` (its order of additions
+   emulated with torch ops), its draws equal to the grid counts of its
+   own CDF, its rows bit-identical at B = 1 and 128 and permuted, the
+   draws that differ from the plain version's counted (knife edges), its
+   time with the host's issue (``cuda_ms``, as every kernel's) and queued
+   behind a spin kernel (the card's alone), beside the plain sequence's
+   and its bound; then at R = 1
+   (depth 1 and the default in turns),
    holding a subset against the classic driver on the float64 plain path
    (no decision flips where the float64 winner's posterior exceeds 0.91,
    pair evidences within rtol 5e-4 / atol 5e-3);
@@ -137,8 +141,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    batches 256 and 128, bit-identical in every array; the plain redraw (the
    backend="torch" path) replayed op by op on the chain's inputs at both
    batches, the first of its ops whose output depends on the batch
-   printed; the redraw kernel's checks of phase 6 on the bench's inputs
-   (R = 4), its rows at B = 1, 128 and 1024, its time at B = 1024; the
+   printed; ``inference.process_spectra`` on the bench's first 1,024
+   spectra at batches 1024 and 128, bit-identical in every array (the
+   values that differ counted); the redraw kernel's checks of phase 6 on
+   the bench's inputs (R = 4), its rows at B = 1, 128 and 1024, its time
+   at B = 1024; the
    CDDF sums kernel (csrc/cddf.cu) on the chain's own inputs at B = 1024:
    within 1e-12 relative of the plain float64 sums, bit-identical over
    three runs and for a row alone, its time at B = 128 and 1024 beside
@@ -245,6 +252,36 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+SPIN_HZ = 2e9   # spin-kernel cycles a second: above the H100's top SM clock (1.98 GHz)
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card over ``reps`` calls
+    queued behind a spin kernel, after one warm-up call: the host is
+    ahead of the card, so the events time the card's work back to back
+    (the card's own gaps between launches included), not the host's
+    issue of each call, which ``cuda_ms`` also times where it is the
+    longer."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    ahead = time.perf_counter() - t0   # at least the host's issue of the calls
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * ahead * SPIN_HZ) + 10_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -2021,10 +2058,12 @@ def redraw_check(calls, label: str, smi: str) -> dict:
     """The redraw kernel on captured chain inputs (``calls``: the (B, S)
     sample log likelihoods on the host, kvec, grid size), each call
     against its plain version on the card: the kernel's CDF within twice
-    the plain float32 scan's distance from the float64 CDF, its draws
-    equal to ``grid_counts_reference`` of its own CDF, and the draws
-    that differ from the plain version's (the knife edge, not a fault)
-    counted.  Returns the worst CDF errors and the differing draws."""
+    the plain float32 scan's distance from the float64 CDF and bit for
+    bit ``posterior_cdf_in_kernel_order`` (the order of additions it
+    keeps), its draws equal to ``grid_counts_reference`` of its own CDF
+    and so to the draws of that order, and the draws that differ from
+    the plain version's (the knife edge, not a fault) counted.  Returns
+    the worst CDF errors and the differing draws."""
     import torch
 
     from gp_dla_detection_tpu_torch.ops import redraw
@@ -2041,6 +2080,10 @@ def redraw_check(calls, label: str, smi: str) -> dict:
         err_k = float((cdf.double() - exact).abs().max())
         err_p = float((plain_cdf.double() - exact).abs().max())
         draws = redraw.inverse_cdf_grid(x, kv, grid)
+        emulated = redraw.posterior_cdf_in_kernel_order(x)
+        if not torch.equal(cdf, emulated):
+            fail(f"{label}: the redraw kernel's CDF is not posterior_cdf_in_kernel_order's "
+                 f"({int((cdf != emulated).sum())} entries differ)")
         if not torch.equal(draws, redraw.grid_counts_reference(cdf, grid)[:, kv]):
             fail(f"{label}: the redraw kernel's draws are not the grid counts of its own CDF")
         if not err_k <= 2 * err_p:
@@ -2055,10 +2098,39 @@ def redraw_check(calls, label: str, smi: str) -> dict:
     say(f"{label}: redraw kernel on the chain's own inputs ({len(calls)} calls of "
         f"{calls[0][0].shape[0]} x {calls[0][0].shape[1]}, grid {grid}): CDF max |kernel - f64| "
         f"{worst['kernel']:.3e}, plain f32 cumsum's {worst['plain']:.3e} (at most twice), "
-        f"|kernel - plain| {worst['vs_plain']:.3e}; draws equal to the grid counts of its own CDF; "
+        f"|kernel - plain| {worst['vs_plain']:.3e}; CDF bit for bit posterior_cdf_in_kernel_order's; "
+        f"draws equal to the grid counts of its own CDF, the draws of that order; "
         f"draws that differ from the plain version's (knife edges) {moved} of {total} in {rows} "
         f"rows ({smi})")
     return {**worst, "draws_moved": moved, "rows_moved": rows, "draws": total}
+
+
+def redraw_times(x, kv, grid: int, reps: int) -> dict:
+    """The redraw kernel's and its plain sequence's ms on (x, kv, grid) on
+    the card, the kernel twice and the plain sequence between: ``ms``,
+    ``ms_2`` and ``plain_ms`` as ``cuda_ms`` times them, every other
+    kernel of the kernels line too (the host's issue of each call
+    included where it is the longer); ``queued_ms``, ``queued_ms_2`` and
+    ``plain_queued_ms`` queued behind a spin kernel (the card's time
+    alone)."""
+    from gp_dla_detection_tpu_torch.ops import redraw
+
+    kernel = lambda: redraw.inverse_cdf_grid(x, kv, grid)
+    plain = lambda: redraw.inverse_cdf_grid_reference(x, kv, grid)
+    return {"ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, reps),
+            "ms_2": cuda_ms(kernel, reps), "queued_ms": queued_ms(kernel, reps),
+            "plain_queued_ms": queued_ms(plain, reps), "queued_ms_2": queued_ms(kernel, reps)}
+
+
+def redraw_time_line(t: dict, bound: tuple[float, str]) -> str:
+    """The redraw kernel's times (``redraw_times``) beside its bound, with
+    the share of the bound reached on each yardstick."""
+    return (f"{t['ms']:.4f} / {t['ms_2']:.4f} ms with the host's issue (cuda_ms, as every kernel "
+            f"here), the plain sequence {t['plain_ms']:.4f} ms; queued behind a spin kernel "
+            f"{t['queued_ms']:.4f} / {t['queued_ms_2']:.4f} ms, the plain sequence "
+            f"{t['plain_queued_ms']:.4f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({bound[0] / t['ms']:.2f} of it reached with the host, "
+            f"{bound[0] / t['queued_ms']:.2f} queued)")
 
 
 def redraw_rows_alone(sll, kvec, grid, label: str) -> None:
@@ -2531,6 +2603,30 @@ def bench_phase(smi: str, seed: int) -> dict:
         fail(f"phase 10: the chain at S={ODD_S} launched {odd_big_l} and {odd_small_l}")
     del odd, odd_runs, odd_big, odd_small
 
+    # ---- the single driver under "cuda" (ROADMAP C.1): the bench's first
+    # B spectra at batches B and BATCH, bit-identical in every array
+    from gp_dla_detection_tpu_torch.inference import process_spectra
+
+    singles = {}
+    for batch in (B, BATCH):
+        reset_counts()
+        res = process_spectra(work.model, work.offsets, work.nhis, work.spectra.slice(slice(0, B)),
+                              work.prior_z, work.prior_flags, batch_size=batch)
+        singles[batch] = (result_arrays(res), launch_counts())
+    (one_big, one_big_l), (one_small, one_small_l) = singles[B], singles[BATCH]
+    one_moved = {n: int((~((x == one_small[n]) | (np.isnan(x) & np.isnan(one_small[n]))
+                          if x.dtype.kind == "f" else x == one_small[n])).sum())
+                 for n, x in one_big.items()}
+    say(f"phase 10: process_spectra (cuda, float32, the kernels) on the bench's first {B} "
+        f"spectra, batch {B} vs batch {BATCH}: values that differ {sum(one_moved.values())} "
+        f"({', '.join(f'{n} {v}' for n, v in one_moved.items() if v) or 'none'}); launches "
+        f"{COUNTED} {one_big_l} and {one_small_l} ({smi})")
+    if any(one_moved.values()):
+        fail(f"phase 10: process_spectra at batch {B} is not bit-identical to batch {BATCH}")
+    if one_big_l[0] != 1 or one_small_l[0] != B // BATCH:
+        fail(f"phase 10: process_spectra launched {one_big_l} and {one_small_l}")
+    del singles, one_big, one_small
+
     # the plain redraw (backend="torch") replayed op by op on the inputs the
     # chain gave the kernel: where its own result depends on the batch
     redraw_steps = redraw_divergence(big_redraws, runs[BATCH][3])
@@ -2543,14 +2639,11 @@ def bench_phase(smi: str, seed: int) -> dict:
     redraw_bench = redraw_check(big_redraws, "phase 10", smi)
     redraw_rows_alone(x, kv, grid, "phase 10")
     x, kv = x.cuda(), kv.cuda()
-    redraw_b = (cuda_ms(lambda: redraw.inverse_cdf_grid(x, kv, grid), 10),
-                cuda_ms(lambda: redraw.inverse_cdf_grid_reference(x, kv, grid), 10),
-                cuda_ms(lambda: redraw.inverse_cdf_grid(x, kv, grid), 10))
+    redraw_b = redraw_times(x, kv, grid, 10)
     redraw_b_bound = redraw_bound(*x.shape, kv.numel())
     say(f"phase 10: redraw kernel at B={x.shape[0]} S={x.shape[1]} grid {grid}: "
-        f"{redraw_b[0]:.4f} / {redraw_b[2]:.4f} ms, the plain sequence {redraw_b[1]:.4f} ms; bound "
-        f"{redraw_b_bound[0]:.4f} ms by {redraw_b_bound[1]} ({redraw_b_bound[0] / redraw_b[0]:.2f} "
-        f"of it reached); rows bit-identical at B=1, 128 and {x.shape[0]} and permuted ({smi})")
+        f"{redraw_time_line(redraw_b, redraw_b_bound)}; rows bit-identical at B=1, 128 "
+        f"and {x.shape[0]} and permuted ({smi})")
     del x, kv
 
     # ---- the CDDF sums kernel on the chain's own inputs at B = 1024 and on
@@ -2642,8 +2735,7 @@ def bench_phase(smi: str, seed: int) -> dict:
     say("phase 10 ok")
     return {"kernel_line": kernel_line, "chain_line": chain_line, "driver_line": driver_line,
             "sweep": sweep, "kernels": kernels, "chain_launches": big_launches,
-            "redraw": {**redraw_bench, "ms": redraw_b[0], "ms_2": redraw_b[2],
-                       "plain_ms": redraw_b[1], "bound_ms": redraw_b_bound[0],
+            "redraw": {**redraw_bench, **redraw_b, "bound_ms": redraw_b_bound[0],
                        "bound_by": redraw_b_bound[1]},
             "sums": {**sums_bench, "times": sums_times, "bounds": sums_bounds,
                      "library": sums_library, "split": splits,
@@ -3106,14 +3198,11 @@ def main() -> None:
                       "phase 6")
     x6, kv6, grid6 = seen["redraws"][0]
     x6, kv6 = x6.cuda(), kv6.cuda()
-    redraw_times = {128: (cuda_ms(lambda: redraw.inverse_cdf_grid(x6, kv6, grid6), 20),
-                          cuda_ms(lambda: redraw.inverse_cdf_grid_reference(x6, kv6, grid6), 20),
-                          cuda_ms(lambda: redraw.inverse_cdf_grid(x6, kv6, grid6), 20))}
-    redraw_bounds = {128: redraw_bound(*x6.shape, kv6.numel())}
+    redraw6_t = redraw_times(x6, kv6, grid6, 20)
+    redraw6_bound = redraw_bound(*x6.shape, kv6.numel())
     say(f"phase 6: redraw kernel at B={x6.shape[0]} S={x6.shape[1]} grid {grid6}: "
-        f"{redraw_times[128][0]:.4f} / {redraw_times[128][2]:.4f} ms, the plain sequence "
-        f"{redraw_times[128][1]:.4f} ms; bound {redraw_bounds[128][0]:.4f} ms by "
-        f"{redraw_bounds[128][1]}; rows bit-identical at B=1, 128 and permuted ({smi})")
+        f"{redraw_time_line(redraw6_t, redraw6_bound)}; rows bit-identical at B=1, 128 "
+        f"and permuted ({smi})")
     del x6, kv6, seen["redraws"]
 
     reset_counts()
@@ -3275,15 +3364,21 @@ def main() -> None:
             "plain_cdf_err_vs_f64": max(redraw6["plain"], bp["redraw"]["plain"]),
             "draws_differing_from_plain": [redraw6["draws_moved"], bp["redraw"]["draws_moved"]],
             "rows_differing_from_plain": [redraw6["rows_moved"], bp["redraw"]["rows_moved"]],
-            "ms": redraw_times[128][0],
-            "plain_ms": redraw_times[128][1],
-            "bound_ms": redraw_bounds[128][0],
-            "bound_by": redraw_bounds[128][1],
+            "ms": redraw6_t["ms"],
+            "plain_ms": redraw6_t["plain_ms"],
+            "queued_ms": redraw6_t["queued_ms"],
+            "queued_ms_of": "queued behind a spin kernel: the card's time alone "
+                            "(chip_smoke.queued_ms; ms is cuda_ms, as every row's)",
+            "plain_queued_ms": redraw6_t["plain_queued_ms"],
+            "bound_ms": redraw6_bound[0],
+            "bound_by": redraw6_bound[1],
             "library_ms": None,
             "library_call": "none: no one PyTorch call computes a CDF's grid counts and the "
                             "draws at kvec",
             "ms_b1024": bp["redraw"]["ms"],
             "plain_ms_b1024": bp["redraw"]["plain_ms"],
+            "queued_ms_b1024": bp["redraw"]["queued_ms"],
+            "plain_queued_ms_b1024": bp["redraw"]["plain_queued_ms"],
             "bound_ms_b1024": bp["redraw"]["bound_ms"],
             "card": smi,
         },

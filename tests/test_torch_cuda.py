@@ -386,6 +386,69 @@ def test_redraw_kernel_counts_are_grid_counts_of_its_cdf(device, S, grid):
     assert torch.equal(cdf[:, -1], torch.ones_like(cdf[:, -1]))
 
 
+@pytest.mark.parametrize("S", [1, 4095, 4096, 4097, 10000, 10001, 12288, 12289, 100003])
+def test_redraw_kernel_is_its_order_emulated_bit_for_bit(device, S):
+    """The kernel's CDF equals ``posterior_cdf_in_kernel_order`` on the
+    card bit for bit, and its draws the grid counts of that CDF: rows the
+    block holds (S <= 12,288) and rows it streams twice."""
+    from gp_dla_detection_tpu_torch.ops import redraw
+
+    rng = np.random.default_rng(S)
+    sll = torch.as_tensor(redraw_rows(rng, 9, S), device=device)
+    grid = max(1, S // 4)
+    kvec = torch.as_tensor(rng.integers(0, grid, S), device=device)
+    emulated = redraw.posterior_cdf_in_kernel_order(sll)
+    assert torch.equal(redraw.posterior_cdf(sll), emulated)
+    assert torch.equal(redraw.inverse_cdf_grid(sll, kvec, grid),
+                       redraw.grid_counts_reference(emulated, grid)[:, kvec])
+
+
+def test_redraw_kernel_rounds_denormal_quotients(device):
+    """Peaked rows whose CDF runs through the denormal range (c < 2**-126,
+    where the division takes its slow path): tiny weights before one,
+    two or three maxima (a total of exactly 1, 2 or 3, so that halving
+    puts many quotients on a tie of the denormal grid) and a slow ramp;
+    the kernel's CDF and draws bit for bit the emulated order's, whose
+    division is the card's correctly rounded one."""
+    from gp_dla_detection_tpu_torch.ops import redraw
+
+    rng = np.random.default_rng(13)
+    S, grid = 4000, 1000
+    rows = np.empty((4, S))
+    for r, n_max in enumerate((1, 2, 3)):
+        rows[r] = rng.uniform(-103.0, -100.0, S)
+        rows[r, S - n_max:] = 0.0
+    rows[3] = np.linspace(-110.0, 0.0, S)
+    sll = torch.as_tensor(rows.astype(np.float32), device=device)
+    cdf = redraw.posterior_cdf(sll)
+    emulated = redraw.posterior_cdf_in_kernel_order(sll)
+    assert int(((cdf > 0) & (cdf < 2.0 ** -126)).sum()) > 10000
+    assert torch.equal(cdf, emulated)
+    kvec = torch.as_tensor(rng.integers(0, grid, S), device=device)
+    assert torch.equal(redraw.inverse_cdf_grid(sll, kvec, grid),
+                       redraw.grid_counts_reference(emulated, grid)[:, kvec])
+
+
+def test_redraw_kernel_at_the_largest_grids(device):
+    """Grids on either side of the largest whose boundary table fits in
+    shared memory beside the histogram (about half the largest grid),
+    and the largest grid: the draws are the grid counts of the kernel's
+    own CDF, and odd J and rows off a 16-byte boundary write every
+    draw."""
+    from gp_dla_detection_tpu_torch.ops import redraw
+
+    top = redraw.max_grid_size(device)
+    rng = np.random.default_rng(11)
+    S = 3001
+    sll = torch.as_tensor(redraw_rows(rng, 7, S), device=device)
+    cdf = redraw.posterior_cdf(sll)
+    for grid in (top // 2 - 1, top // 2 + 1, top):
+        kvec = torch.as_tensor(rng.integers(0, grid, 2 * S + 1), device=device)
+        got = redraw.inverse_cdf_grid(sll, kvec, grid)
+        assert torch.equal(got, redraw.grid_counts_reference(cdf, grid)[:, kvec]), grid
+        assert torch.equal(redraw.inverse_cdf_grid(sll[1:4], kvec, grid), got[1:4])
+
+
 def test_redraw_kernel_rows_do_not_depend_on_the_batch(device):
     from gp_dla_detection_tpu_torch.ops import redraw
 

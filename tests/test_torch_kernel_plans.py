@@ -7,14 +7,26 @@ on the row alone, never on the batch.  The kernels' orders of additions,
 emulated in float64 with torch, give the plain versions' sums: the CDDF
 sums through ``cddf_sums_chunked``, the null evidence through the sliced
 Gram of z = (M, y - mu) that the kernel forms.
+
+The base redraw (``csrc/redraw.cu``): its scan in the kernel's order
+(``ops.redraw.posterior_cdf_in_kernel_order``, float32) near float64 and
+its draws against JAX's ``device_inverse_cdf_grid``; its division-free
+grid cell (``grid_cell_by_table``) equal to the plain version's at and
+around every cell boundary.  The kernel against the emulation, bit for
+bit, is in ``tests/test_torch_cuda.py``.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gp_dla_detection_tpu import multi_dla as jmd
 from gp_dla_detection_tpu_torch import cddf_inputs
-from gp_dla_detection_tpu_torch.ops import low_rank_mvn
+from gp_dla_detection_tpu_torch.ops import low_rank_mvn, redraw
+
+AGREE_F32 = 0.999        # tests/test_torch_redraw.py: float32 knife edges
+H100_MAX_GRID = 58_015   # gpdla_redraw_max_grid on an H100 (232,448 B of shared memory a block)
 
 
 def sums_inputs(B, S, sorted_bases=True, seed=0):
@@ -150,3 +162,89 @@ def test_null_evidence_in_the_kernel_order_equals_the_plain_version(P, k):
     assert torch.isfinite(got).all()
     assert float(((got - want).abs() / want.abs().clamp(min=1.0)).max()) < 1e-12
     assert torch.equal(sliced_null_evidence(*[a[3:4] for a in args]), got[3:4])
+
+
+def posterior_rows(B, S, seed=0):
+    """float32 (B, S) rows: broad and peaked posteriors, a spike, a NaN
+    row, an all -inf row, scattered NaN and -inf entries."""
+    rng = np.random.default_rng(seed)
+    sll = rng.normal(-50.0, 4.0, (B, S))
+    sll[1 % B] = rng.normal(-50.0, 0.3, S)
+    sll[2 % B, rng.integers(S)] += 200.0
+    sll[3 % B] = np.nan
+    sll[4 % B] = -np.inf
+    sll[5 % B, rng.integers(0, S, S // 10 + 1)] = np.nan
+    sll[6 % B, rng.integers(0, S, S // 10 + 1)] = -np.inf
+    return sll.astype(np.float32)
+
+
+def float32_running_sum_cdf(sll):
+    """The plain float32 scan: a running float32 sum (numpy's cumsum in
+    float32; torch's CPU cumsum accumulates in float64)."""
+    x = np.where(np.isnan(sll), -np.inf, sll)
+    m = x.max(axis=1, keepdims=True)
+    w = np.exp(x - np.where(np.isfinite(m), m, 0)).astype(np.float32)
+    w[(m == -np.inf)[:, 0]] = 1.0
+    c = np.cumsum(w, axis=1, dtype=np.float32)
+    return c / c[:, -1:]
+
+
+@pytest.mark.parametrize("S", [1, 4095, 4096, 4097, 10000, 10001, 100003])
+def test_redraw_cdf_in_the_kernel_order_is_near_float64(S):
+    """The kernel's tiled scan in float32: within twice the plain float32
+    scan's distance of the float64 CDF, the last entry exactly 1, the
+    draws the grid counts of it, and a row's bits the same in any
+    batch."""
+    sll = posterior_rows(8, S, seed=S)
+    x = torch.as_tensor(sll)
+    cdf = redraw.posterior_cdf_in_kernel_order(x)
+    exact = redraw.posterior_cdf_reference(x.double())
+    err = float((cdf.double() - exact).abs().max())
+    plain = float(np.abs(float32_running_sum_cdf(sll) - exact.numpy()).max())
+    assert cdf.dtype == torch.float32 and torch.isfinite(cdf).all()
+    assert err <= 2 * plain, (err, plain)
+    assert torch.equal(cdf[:, -1], torch.ones(8))
+    for rows in (slice(0, 1), slice(5, 6), slice(2, 7)):
+        assert torch.equal(redraw.posterior_cdf_in_kernel_order(x[rows]), cdf[rows])
+    perm = torch.as_tensor(np.random.default_rng(1).permutation(8))
+    assert torch.equal(redraw.posterior_cdf_in_kernel_order(x[perm]), cdf[perm])
+    grid = max(1, S // 4)
+    kvec = torch.as_tensor(np.random.default_rng(2).integers(0, grid, S))
+    draws = redraw.grid_counts_reference(cdf, grid)[:, kvec]
+    assert int(draws.min()) >= 0 and int(draws.max()) <= S - 1
+
+
+@pytest.mark.parametrize("R", [1, 4])
+def test_redraw_draws_in_the_kernel_order_match_jax(R):
+    """The draws of the kernel's float32 CDF against JAX's float32
+    ``device_inverse_cdf_grid`` at the agreement of float32 knife edges;
+    the uniform rows draw every grid quantile."""
+    S = 1024
+    sll = posterior_rows(64, S, seed=R)
+    if R == 1:
+        kvec, grid = jmd.base_sample_perm(S, 9), S
+    else:
+        draw_idx, grid = jmd.replicate_draw_pattern(S, 256, R)
+        kvec = jmd.base_sample_perm(grid, 9)[draw_idx]
+    cdf = redraw.posterior_cdf_in_kernel_order(torch.as_tensor(sll))
+    ours = redraw.grid_counts_reference(cdf, grid)[:, torch.as_tensor(kvec)].numpy()
+    theirs = np.asarray(jmd.device_inverse_cdf_grid(jnp.asarray(sll), kvec, grid))
+    assert (ours == theirs).mean() > AGREE_F32
+    assert len(np.unique(ours[3])) == grid and len(np.unique(ours[4])) == grid
+
+
+@pytest.mark.parametrize("s", [1, 7, 2512, 10000, H100_MAX_GRID])
+def test_grid_cell_by_table_equals_the_reference_at_every_boundary(s):
+    """Every float32 cell boundary (k + 0.5)/s, one ulp below and one
+    above it, and 0, 1 and values past either end: the table's cell is
+    the plain version's."""
+    u = (torch.arange(s, dtype=torch.float32) + 0.5) / torch.full((), s, dtype=torch.float32)
+    c = torch.cat([u, torch.nextafter(u, torch.zeros(())), torch.nextafter(u, torch.ones(()) * 2),
+                   torch.tensor([0.0, 1.0, 1.5, -0.0, 1e-30, 0.999999940395])])
+    # the boundaries as the kernel divides them: each the correctly rounded
+    # float32 quotient (float64's quotient rounded once more to float32 is)
+    assert torch.equal(u, ((torch.arange(s, dtype=torch.float64) + 0.5) / s).float())
+    got = redraw.grid_cell_by_table(c[None], s)
+    want = redraw.grid_cells_reference(c[None], s)
+    assert torch.equal(got, want)
+    assert int(want.min()) == 0 and int(want.max()) == s
