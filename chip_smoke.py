@@ -158,7 +158,27 @@ Phases, each reported on its own line; any failure exits non-zero:
    normalized of its plain version and 5e-4 of float64, each row the same
    bits at B = 1, 128 and 256, shifted by one and permuted (the plain
    version's rows that move printed), its time at B = 128 and 1024;
-11. print a JSON line describing both evidence kernel configurations,
+11. the survey harnesses, in subprocesses as a user runs them, in one
+   temporary workdir removed afterwards (on failure too): (a)
+   ``scripts/torch_scale_rehearsal.py`` at its defaults (16,384
+   sightlines x 10,000 samples, batch 1024, the classic two-stage flow
+   with per-batch checkpoints, the seed from ``--seed``): a worker
+   SIGKILLed during the single-DLA stage and one during the pair stage,
+   resumed, and the result bit-identical in every array to an
+   uninterrupted run, each finished worker's single, pair and null
+   launches equal to the batches it computed; the kill points, each
+   leg's wall, run B's spectra/s per stage, the build's seconds and the
+   checkpoint volume printed; (b) the classic flow under
+   ``backend="cuda"`` on the universe's first 2,048 sightlines at
+   batches 1024 and 128, bit-identical in every array, one launch of
+   each kernel per batch; (c) ``scripts/torch_survey_release.py`` on the
+   same universe (the lean chain with CDDF inputs killed at a third and
+   resumed at batch 1024, the ASCII and analysis stages) against an
+   uninterrupted lean worker at batch 256: every array of the catalogue
+   bit-identical, ``cddf_*`` included, one launch of each kernel per
+   batch, exact multiplicity >= 0.95 against the injection truth, the
+   four ASCII files and a finite ``analysis/statistics.json`` written;
+12. print a JSON line describing both evidence kernel configurations,
    the redraw, the CDDF sums and the null evidence kernels (times, bound, yardstick,
    launches, errors, the card; the B = 1024 times and bounds and the
    bench's lines) and, last, a JSON line with the device.
@@ -217,6 +237,13 @@ BENCH_CHAIN_BATCHES = (1024, 256, 128)   # phase 10: the chain's batches, bit-id
 ODD_S = 10001                 # phase 10: a sample count that is not a multiple of 4
 ODD_S_SPECTRA = 256           # phase 10: the chain at ODD_S on this many spectra, at
                               # batches ODD_S_SPECTRA and BATCH, bit-identical
+SURVEY_SPECTRA = 16384        # phase 11: the rehearsal's sightlines (its default)
+SURVEY_BATCH = 1024           # phase 11: the rehearsal's and the release's batch
+SURVEY_SUBSET = 2048          # phase 11 (b): the classic flow on this many sightlines
+SURVEY_SUBSET_BATCHES = (1024, 128)   # at these batches, bit-identical
+RELEASE_B_BATCH = 256         # phase 11 (c): the uninterrupted lean run's batch
+SURVEY_ACC = 0.95             # phase 11 (c): exact-multiplicity floor (the JAX harness's)
+SURVEY_TIMEOUT = 900          # phase 11: seconds one harness run may take
 KERNEL_SOURCES = ("evidence", "redraw", "cddf", "null_evidence")   # csrc/<name>.cu
 # the previous design's kernel times at the phase-3/5 shapes, for
 # comparison (PERF.md, PR 3's chip runs on NVIDIA H100 80GB HBM3, 700.00 W)
@@ -2747,6 +2774,165 @@ def bench_phase(smi: str, seed: int) -> dict:
                      "bounds": null_bounds}}
 
 
+def script_run(argv: list[str], label: str) -> str:
+    """``python <argv>`` from the repo root as a user runs it, its
+    output printed; its stdout, or the phase fails with the tail."""
+    import signal
+
+    t0 = time.perf_counter()
+    # a session of its own: on a timeout its workers go down with it
+    proc = subprocess.Popen(
+        [sys.executable, *argv], cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+    )
+    try:
+        stdout, stderr = proc.communicate(timeout=SURVEY_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"phase 11: {label} did not finish in {SURVEY_TIMEOUT} s")
+    for line in stdout.splitlines():
+        if line.startswith("- ") or line.startswith("built ") or line.startswith("artifacts "):
+            say(f"phase 11 {label}: {line}")
+    if proc.returncode:
+        fail(f"phase 11: {label} exited {proc.returncode} after "
+             f"{time.perf_counter() - t0:.1f} s:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    return stdout
+
+
+def survey_phase(smi: str, seed: int) -> dict:
+    """Phase 11: the survey harnesses on the card, in one temporary
+    workdir removed afterwards (on failure too).  (a)
+    ``scripts/torch_scale_rehearsal.py`` at its defaults (SURVEY_SPECTRA
+    sightlines x 10,000 samples, batch 1024, the classic flow): two real
+    SIGKILLs, resumes, every array bit-identical to the uninterrupted
+    run, each finished worker's launches equal to its batches; (b) the
+    classic flow under ``backend="cuda"`` on the universe's first
+    SURVEY_SUBSET sightlines at batches 1024 and 128, bit-identical in
+    every array; (c) ``scripts/torch_survey_release.py`` on the same
+    universe (killed at a third and resumed at batch 1024, the ASCII and
+    analysis stages) against an uninterrupted lean worker at batch
+    RELEASE_B_BATCH: every array bit-identical, ``cddf_*`` included,
+    exact multiplicity >= SURVEY_ACC, the ASCII files and a finite
+    ``analysis/statistics.json`` written."""
+    import runpy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gp_dla_detection_tpu_torch.pipeline import Pipeline, PipelineConfig
+
+    repo = Path(__file__).resolve().parent
+    harness = runpy.run_path(str(repo / "scripts" / "torch_scale_rehearsal.py"))
+    t_phase = time.perf_counter()
+    wd = Path(tempfile.mkdtemp(prefix="gpdla_survey_"))
+    try:
+        # ---- (a) the kill-and-resume rehearsal
+        out = script_run(["scripts/torch_scale_rehearsal.py", "--workdir", str(wd),
+                          "--n-spectra", str(SURVEY_SPECTRA), "--seed", str(seed)], "(a)")
+        reh = harness["marked_json"](out, "REHEARSAL")
+        if not reh["identical"] or not all(reh["killed"]):
+            fail(f"phase 11 (a): identical {reh['identical']} ({reh['mismatches']}), "
+                 f"killed {reh['killed']}")
+        for leg, exp in reh["expected_launches"].items():
+            got = reh["launches"][leg]
+            if (got["single"], got["pair"], got["null"]) != (exp["single"], exp["pair"],
+                                                             exp["single"]):
+                fail(f"phase 11 (a): {leg} launched {got} for {exp} batches")
+        say(f"phase 11 (a): {SURVEY_SPECTRA} sightlines, batch {reh['batch']}: killed at "
+            f"{reh['kill_points']} of {reh['n_batches']} batches (single, pair stage), legs "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in reh["leg_s"].items())
+            + f"; run B single {reh['spectra_per_s']['inference']:.1f}, pair "
+            f"{reh['spectra_per_s']['multi']:.1f}, two-stage "
+            f"{reh['spectra_per_s']['two_stage']:.1f} spectra/s; build {reh['build_s']:.1f} s "
+            f"(synthesis {reh['build']['synthesize_s']:.1f}, saves {reh['build']['save_s']:.1f}, "
+            f"the ragged spectra {reh['build']['spectra_save_s']:.1f}); checkpoints "
+            f"{reh['checkpoint_mb']:.0f} MB, result files {reh['result_files_mb']:.0f} MB; "
+            f"bit-identical; launches {reh['launches']} ({smi})")
+
+        # ---- (b) the classic flow across batches (ROADMAP C.1)
+        catalog, spectra, model, samples = harness["load_artifacts"](wd, torch.device("cuda"))
+        subset = (Pipeline.default_test_mask(catalog, spectra)
+                  & (np.arange(len(catalog)) < SURVEY_SUBSET))
+        classic = {}
+        for b in SURVEY_SUBSET_BATCHES:
+            pipe = Pipeline(harness["rehearsal_params"](), PipelineConfig(
+                workdir=str(wd / f"classic_b{b}"), per_device_batch=b, backend="cuda"))
+            reset_counts()
+            t0 = time.perf_counter()
+            res = pipe.run_inference(catalog, spectra, model, samples, test_mask=subset)
+            pipe.run_multi(catalog, spectra, model, samples, res, subset)
+            sync()
+            classic[b] = (time.perf_counter() - t0, launch_counts())
+            nb = -(-SURVEY_SUBSET // b)
+            if classic[b][1] != (nb, nb, 0, 0, nb):
+                fail(f"phase 11 (b): batch {b}: launches {COUNTED} {classic[b][1]}, "
+                     f"{nb} batches")
+        del catalog, spectra, res
+        b_hi, b_lo = SURVEY_SUBSET_BATCHES
+        moved = harness["compare_results"](wd / f"classic_b{b_hi}", wd / f"classic_b{b_lo}",
+                                           harness["RESULT_FILES"])
+        say(f"phase 11 (b): the classic flow under backend='cuda' on {SURVEY_SUBSET} "
+            f"sightlines: batch {b_hi} {classic[b_hi][0]:.1f} s, {b_lo} {classic[b_lo][0]:.1f} s; "
+            f"arrays that differ: {moved or 'none'}")
+        if moved:
+            fail(f"phase 11 (b): the classic flow depends on the batch: {moved}")
+
+        # ---- (c) the lean release, killed and resumed, against batch 256
+        out = script_run(["scripts/torch_survey_release.py", "--workdir", str(wd),
+                          "--batch", str(SURVEY_BATCH)], "(c)")
+        rel = harness["marked_json"](out, "RELEASE")
+        t0 = time.perf_counter()
+        out_b = script_run(["scripts/torch_survey_release.py", "--worker", "--workdir", str(wd),
+                            "--batch", str(RELEASE_B_BATCH), "--run-name", "release_b256"],
+                           "(c) uninterrupted")
+        wall_b = time.perf_counter() - t0
+        done_b = harness["marked_json"](out_b, "WORKER COMPLETE")
+        nb = -(-SURVEY_SPECTRA // RELEASE_B_BATCH)
+        if any(v != nb for k, v in done_b["launches"].items()):
+            fail(f"phase 11 (c): the batch-{RELEASE_B_BATCH} run launched "
+                 f"{done_b['launches']} for {nb} batches")
+        if not rel["killed"] or any(rel["launches"][k] != v
+                                    for k, v in rel["expected_launches"].items()):
+            fail(f"phase 11 (c): killed {rel['killed']}, launches {rel['launches']} for "
+                 f"{rel['expected_launches']}")
+        moved = harness["compare_results"](wd / "release", wd / "release_b256",
+                                           ["processed_qsos_multi_dr12q.npz"])
+        with np.load(wd / "release" / "processed_qsos_multi_dr12q.npz") as f:
+            cddf_keys = sorted(k for k in f.files if k.startswith("cddf_"))
+        stats = json.loads((wd / "release" / "analysis" / "statistics.json").read_text())
+        ascii_files = sorted(p.name for p in (wd / "release").glob("*.dat"))
+        say(f"phase 11 (c): the lean release on {rel['n_spectra']} sightlines: killed at "
+            f"{rel['kill_point']} of {rel['n_batches']} batches, legs {rel['leg_s']['leg1']:.1f} / "
+            f"{rel['leg_s']['leg2']:.1f} s (multi {rel['multi_s_leg2']} s), analysis "
+            f"{rel['analysis_s']:.1f} s, {rel['spectra_per_s']:.1f} spectra/s with the kill; "
+            f"batch {RELEASE_B_BATCH} uninterrupted {wall_b:.1f} s (multi {done_b['multi_s']} s "
+            f"= {SURVEY_SPECTRA / done_b['multi_s']:.1f} spectra/s); exact multiplicity "
+            f"{rel['exact_multiplicity_acc']:.4f}; checkpoints {rel['checkpoint_mb']:.1f} MB; "
+            f"arrays that differ: {moved or 'none'} ({len(cddf_keys)} cddf_* keys); ASCII "
+            f"{ascii_files}; statistics not finite at {nonfinite_json(stats)}")
+        if moved:
+            fail(f"phase 11 (c): the resumed release differs from batch {RELEASE_B_BATCH}: {moved}")
+        if not rel["exact_multiplicity_acc"] >= SURVEY_ACC:
+            fail("phase 11 (c): exact multiplicity below the floor")
+        if len(ascii_files) != 4 or not cddf_keys or not stats["lean_inputs"] \
+                or nonfinite_json(stats):
+            fail("phase 11 (c): the ASCII files, the CDDF inputs or the statistics are missing")
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    say(f"phase 11 ok ({time.perf_counter() - t_phase:.1f} s)")
+    launches = np.zeros(5, np.int64)
+    for got in (reh["launches"]["leg3"], reh["launches"]["runB"], rel["launches"],
+                done_b["launches"]):
+        launches += [got["single"], got["pair"], got["redraw"], got["cddf"], got["null"]]
+    for _, counts in classic.values():
+        launches += counts
+    return {"launches": launches.tolist(), "rehearsal": reh, "release": rel,
+            "classic_s": {b: v[0] for b, v in classic.items()}}
+
+
 def kernel_inputs(w, params, offsets, nhis, n, device, dtype, num_lines=3):
     """Prepared per-spectrum inputs of the evidence kernel for the first
     ``n`` spectra (the port's own _prepare_spectrum), samples sorted."""
@@ -3267,15 +3453,21 @@ def main() -> None:
         for name in ("single", "pair")
     }
 
-    # ---- phase 11: results
+    # ---- phase 11: the survey harnesses
+    survey = survey_phase(smi, args.seed)
+    sl = survey["launches"]
+
+    # ---- phase 12: results
     say(json.dumps({"kernels": [
         {
             "name": "evidence_single_f32",
             "route": "cuda",
             "source": "gp_dla_detection_tpu_torch/csrc/evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/evidence_pallas.py:106",
-            "launches": rl["process"][0] + rl["multi"][0] + dl[0] + bench_launches["single"],
+            "launches": rl["process"][0] + rl["multi"][0] + dl[0] + bench_launches["single"]
+                        + sl[0],
             "launches_bench_default": bench_launches["single"],
+            "launches_survey": sl[0],
             "launches_release_process": rl["process"][0],
             "launches_release_multi": rl["multi"][0],
             "launches_lean_chain": lean_launches[0],
@@ -3311,8 +3503,9 @@ def main() -> None:
             "route": "cuda",
             "source": "gp_dla_detection_tpu_torch/csrc/evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/evidence_pallas.py:106",
-            "launches": rl["multi"][1] + dl[1] + bench_launches["pair"],
+            "launches": rl["multi"][1] + dl[1] + bench_launches["pair"] + sl[1],
             "launches_bench_default": bench_launches["pair"],
+            "launches_survey": sl[1],
             "launches_lean_chain": lean_launches[1],
             "launches_scale_demo": dl[1],
             "max_abs_err": pair_worst[1],
@@ -3352,8 +3545,10 @@ def main() -> None:
             "source": "gp_dla_detection_tpu_torch/csrc/redraw.cu",
             "replaces": "gp_dla_detection_tpu/multi_dla.py:219 (device_inverse_cdf_grid, XLA: "
                         "no TPU kernel; the port's plain torch.cumsum sequence)",
-            "launches": lean_launches[2] + rl["multi"][2] + bp["chain_line"]["launches"]["redraw"],
+            "launches": lean_launches[2] + rl["multi"][2] + bp["chain_line"]["launches"]["redraw"]
+                        + sl[2],
             "launches_lean_chain": lean_launches[2],
+            "launches_survey": sl[2],
             "launches_release_multi": rl["multi"][2],
             "launches_bench_default": bp["chain_line"]["launches"]["redraw"],
             "launches_per_batch": {"lean_chain": lean_launches[2] / n_batches,
@@ -3388,8 +3583,9 @@ def main() -> None:
             "source": "gp_dla_detection_tpu_torch/csrc/cddf.cu",
             "replaces": "gp_dla_detection_tpu/cddf_inputs.py:444 (the reducer's acc.at[].add and "
                         "masked products, XLA: no TPU kernel; the port's plain scatter_add_ sums)",
-            "launches": rl["multi"][3] + bp["chain_launches"][3],
+            "launches": rl["multi"][3] + bp["chain_launches"][3] + sl[3],
             "launches_release_multi": rl["multi"][3],
+            "launches_survey": sl[3],
             "launches_bench_chain_b1024": bp["chain_launches"][3],
             "launches_per_batch": {"multi": rl["multi"][3] / rb},
             "max_abs_err": bp["sums"]["max_abs_err"],
@@ -3416,8 +3612,10 @@ def main() -> None:
             "source": "gp_dla_detection_tpu_torch/csrc/null_evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/low_rank_mvn.py:141 (log_mvnpdf_low_rank, XLA: "
                         "no TPU kernel; the port's plain torch.sum / matmul / Cholesky sequence)",
-            "launches": lean_launches[4] + rl["process"][4] + rl["multi"][4] + bp["chain_launches"][4],
+            "launches": lean_launches[4] + rl["process"][4] + rl["multi"][4] + bp["chain_launches"][4]
+                        + sl[4],
             "launches_lean_chain": lean_launches[4],
+            "launches_survey": sl[4],
             "launches_release_process": rl["process"][4],
             "launches_release_multi": rl["multi"][4],
             "launches_bench_chain_b1024": bp["chain_launches"][4],

@@ -146,7 +146,7 @@ def _imported_roots(tree) -> set[str]:
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py") if "_build" not in p.parts)
-    + ["scripts/torch_scale_demo.py", "scripts/torch_evidence_ablation.py"]
+    + sorted(str(p.relative_to(REPO)) for p in (REPO / "scripts").glob("torch_*.py"))
     + ["chip_smoke.py", "examples/quickstart_torch.py",
        ".claude/skills/verify/verify_drive_torch.py", "tests/torch_distributed_worker.py"],
 )
