@@ -8,15 +8,17 @@ Phases, each reported on its own line; any failure exits non-zero:
 1. find the card (a CUDA device is required; nothing runs on the CPU)
    and print its name and power limit as nvidia-smi reports them;
 2. build every kernel source (csrc/evidence.cu, redraw.cu, cddf.cu,
-   null_evidence.cu), one nvcc each, all started together, and print
-   ptxas's registers, shared memory and spills for both k = 20 evidence
-   configurations and the redraw, CDDF sums and null evidence kernels;
+   null_evidence.cu, and roofline.cu, the microbenchmarks of phase 12),
+   one nvcc each, all started together, and print ptxas's registers,
+   shared memory and spills for both k = 20 evidence configurations, the
+   redraw, CDDF sums and null evidence kernels and the microbenchmarks;
 3. hold the kernel's single-absorber configuration against its plain
    PyTorch version on the card at the production shapes (P = 1274 px,
    k = 20, S = 10,000 samples, 3 lines, windowed and full grid, plus a
    31-line case, and the scale demo's batch of 256) to 5e-5 normalized
    error, and against the float64 plain path; time both versions at the main path's batch shape, beside the
-   least time the card could take (``evidence_bound``) and one FP32
+   least time the card could take (``evidence_bound`` of
+   scripts/torch_roofline.py, loaded by path) and one FP32
    ``torch.bmm`` of the contraction alone as its yardstick, and the
    kernel at 31 lines on the full grid;
 4. run ``inference.process_spectra`` with no device, dtype or backend
@@ -158,6 +160,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    normalized of its plain version and 5e-4 of float64, each row the same
    bits at B = 1, 128 and 256, shifted by one and permuted (the plain
    version's rows that move printed), its time at B = 128 and 1024;
+   the pair kernel also at R = 1 at B = 1024 (its time only); beside each
+   kernel's B = 1024 time nvidia-smi's clock and power, read as the
+   window closes;
 11. the survey harnesses, in subprocesses as a user runs them, in one
    temporary workdir removed afterwards (on failure too): (a)
    ``scripts/torch_scale_rehearsal.py`` at its defaults (16,384
@@ -178,10 +183,37 @@ Phases, each reported on its own line; any failure exits non-zero:
    bit-identical, ``cddf_*`` included, one launch of each kernel per
    batch, exact multiplicity >= 0.95 against the injection truth, the
    four ASCII files and a finite ``analysis/statistics.json`` written;
-12. print a JSON line describing both evidence kernel configurations,
-   the redraw, the CDDF sums and the null evidence kernels (times, bound, yardstick,
-   launches, errors, the card; the B = 1024 times and bounds and the
-   bench's lines) and, last, a JSON line with the device.
+12. the measured roofline (``scripts/torch_roofline.py``, in this
+   process): the ceilings of the op classes the kernels use, from the
+   microbenchmarks of csrc/roofline.cu (FP32 FMA, expf, logf,
+   __fdiv_rn, the evidence kernel's branchless division, mma.sync TF32,
+   FP64 FMA, the read bandwidth; torch.matmul in FP32 and FP64 beside
+   them as library yardsticks), each held to its plain chain of torch
+   ops and to 1.05x its published peak, nvidia-smi's clock and power
+   read in each window; phase 10's B = 1024 time of each of the five
+   kernels (the pair at R = 1 and 4), on phase 10's inputs, against the
+   published-peak bound and the bound at the measured ceilings, with
+   the class that bounds it and the composite: no kernel is faster than
+   its bound at the measured ceilings;
+13. ``scripts/torch_training_convergence.py`` as a user runs it, in
+   float64 on the card, two processes side by side: ``compare`` at N =
+   4,096 with budget 2000 (both optimizers converged, within 1e-5 of
+   each other and 1e-6 of the JAX record) and ``part-a`` at N = 25,000
+   (SIGKILLed while it runs, after a checkpoint, resumed, ended by a
+   convergence test,
+   within 1e-5 of the JAX record); whether the objective gives the same
+   bits twice;
+14. ``scripts/torch_synthetic_universe.py`` and ``--multi`` as a user
+   runs them (the card, float32, the kernels): every assertion of the
+   JAX harness, one launch of each kernel per batch;
+15. print the run time, a JSON line describing both evidence kernel
+   configurations, the redraw, the CDDF sums and the null evidence
+   kernels (times, bound, yardstick, launches, errors, the card; the B =
+   1024 times and bounds, the measured-ceiling bounds and the bench's
+   lines) with the ceilings, the training and the universe (what this
+   run measured: the published peaks, the JAX record and the runs'
+   settings stay in the report lines), and, last, a JSON line with the
+   device.
 
 Weights and data are random, made from ``--seed`` with numpy.  The
 script imports nothing of JAX.
@@ -244,7 +276,17 @@ SURVEY_SUBSET_BATCHES = (1024, 128)   # at these batches, bit-identical
 RELEASE_B_BATCH = 256         # phase 11 (c): the uninterrupted lean run's batch
 SURVEY_ACC = 0.95             # phase 11 (c): exact-multiplicity floor (the JAX harness's)
 SURVEY_TIMEOUT = 900          # phase 11: seconds one harness run may take
-KERNEL_SOURCES = ("evidence", "redraw", "cddf", "null_evidence")   # csrc/<name>.cu
+TRAINING_B = ("4096", "2000")   # phase 13: part B's quasars and L-BFGS budget (the JAX record's)
+TRAINING_A = "25000"            # phase 13: part A's quasars (the JAX record's)
+TRAINING_RTOL = 1e-5            # phase 13: host vs device NLL, both converged (the JAX harness's)
+TRAINING_JAX_RTOL = 1e-6        # phase 13: part B's NLLs vs the JAX record (9 digits)
+HARNESS_TIMEOUT = 900           # phases 13-14: seconds one harness run may take
+HARNESS_LINES = ("- ", "  |", "host:", "device:")   # phases 13-14: report lines printed
+KERNEL_SOURCES = ("evidence", "redraw", "cddf", "null_evidence", "roofline")   # csrc/<name>.cu
+# scripts/torch_roofline.py, loaded by path in main(): the op model, the
+# published-peak bounds, the kernels' inputs and the measured roofline
+ROOFLINE_SCRIPT = Path(__file__).resolve().parent / "scripts" / "torch_roofline.py"
+RL = None
 # the previous design's kernel times at the phase-3/5 shapes, for
 # comparison (PERF.md, PR 3's chip runs on NVIDIA H100 80GB HBM3, 700.00 W)
 PR3_MS = {"single": "72.78-72.96", "pair R=4": "91.48-91.58"}
@@ -270,9 +312,11 @@ def normalized_error(a, b) -> tuple[float, float]:
     return float((diff / b.abs().clamp(min=1.0)).max()), float(diff.max())
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, samples: list | None = None) -> float:
     """Mean milliseconds of ``fn()`` on the card over ``reps`` calls after
-    one warm-up call, timed with CUDA events."""
+    one warm-up call, timed with CUDA events.  ``samples``, where given,
+    gets nvidia-smi's clock and power read as the window closes (before
+    the host waits for the card)."""
     import torch
 
     fn()
@@ -283,6 +327,8 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     stop.record()
+    if samples is not None:
+        samples.append(RL.gpu_sample())
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
 
@@ -339,50 +385,6 @@ def kernel_report(report: str, k: int) -> str:
                 found.append(f"{name}: " + " | ".join(keep))
                 break
     return "; ".join(found) or "no ptxas report"
-
-
-# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
-# memory 3.35 TB/s; FP32 outside the tensor cores
-# 67 TFLOP/s counting an FMA as two, i.e. 33.5e12 unfused operations/s;
-# TF32 on the tensor cores 495 TFLOP/s dense.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 33.5e12
-TF32_FLOPS_PER_S = 495e12
-
-
-def voigt_ops(num_lines: int, core_share: float) -> float:
-    """FP32 operations of one axis's optical depth at one (sample,
-    extended pixel), counted from csrc/evidence.cu's line_profile (each
-    __f*_rn and each division one operation): per line x 3, x^2 1, G 28,
-    the wing 2, the sum 2; the Gaussian core 8 more where it is added."""
-    return num_lines * (36 + 8 * core_share)
-
-
-def evidence_bound(B, S, P, P6, k, num_lines, window, pair, distinct_base):
-    """The least time the card could take for one evidence call
-    (ms, bounding resource, detail), from the shapes: each input read and
-    each output written once; the FP32 operations the inputs need
-    (the Voigt at every (sample, extended pixel), the base axis at every
-    (distinct draw, extended pixel), exp, the convolution and the
-    weights at every (sample, pixel)); the Gram and projection on the
-    tensor cores in 3xTF32 (three TF32 products per multiply-add).  The
-    pipes run side by side, so the bound is the largest of the three."""
-    halo = P6 - P
-    core = 1.0 if window is None else min(1.0, window / P6)
-    ops = B * S * P6 * (voigt_ops(num_lines, core) + 3)       # fresh axis + exp
-    ops += B * S * P * ((2 * halo + 1) + 18)                   # convolution, weights
-    if pair:
-        ops += B * distinct_base * P6 * voigt_ops(num_lines, 1.0) + B * S * P6 * 3
-    mma = 3 * 2 * (k * (k + 1) // 2 + k) * B * S * P
-    n_sample_arrays = 4 if pair else 2
-    nbytes = 4 * (B * P6 + 5 * B * P + B * P * k + n_sample_arrays * B * S + B + B * S)
-    times = {
-        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-        "FP32 pipe": ops / FP32_OPS_PER_S * 1e3,
-        "TF32 tensor cores (3xTF32)": mma / TF32_FLOPS_PER_S * 1e3,
-    }
-    pipe = max(times, key=times.get)
-    return times[pipe], pipe, times
 
 
 def contraction_ms(B: int, S: int, P: int, device) -> float:
@@ -1902,7 +1904,7 @@ def scale_demo_phase(smi: str) -> dict:
         log_omega=model.log_omega, log_c_0=model.log_c_0, log_tau_0=model.log_tau_0,
         log_beta=model.log_beta,
     )
-    kin, _ = kernel_inputs(arrays, params, offsets[order], nhis[order], n, device, torch.float32)
+    kin, _ = RL.kernel_inputs(arrays, params, offsets[order], nhis[order], n, device, torch.float32)
     # sorted column j is sample order[j]; its base sample b sits at sorted
     # column argsort(order)[b]
     cols = torch.as_tensor(np.argsort(order)[res.base_sample_inds[:n][:, order]], device=device)
@@ -1919,7 +1921,7 @@ def scale_demo_phase(smi: str) -> dict:
     )
     plain32 = evidence.sample_log_likelihoods_reference(*kin, window=window)
     err_kp = normalized_error(whole1, plain32)
-    kin64, _ = kernel_inputs(arrays, params, offsets[order], nhis[order], F64_SUBSET, device,
+    kin64, _ = RL.kernel_inputs(arrays, params, offsets[order], nhis[order], F64_SUBSET, device,
                              torch.float64)
     ref64 = evidence.sample_log_likelihoods_reference(*kin64, window=None, sample_chunk=500)
     dist64 = {name: normalized_error(out_[:F64_SUBSET], ref64)
@@ -2040,47 +2042,6 @@ def redraw_divergence(big_calls, small_calls) -> dict:
     return out
 
 
-# FP64 outside the tensor cores on one H100 SXM: 34 TFLOP/s counting an
-# FMA as two (NVIDIA's data sheet), i.e. 17e12 unfused operations/s
-FP64_OPS_PER_S = 17e12
-REDRAW_OPS = 15       # FP32 operations per (row, sample): subtract, exp, the
-                      # scan's add, the divide, the grid cell's multiply,
-                      # add, floor and two correction steps
-CDDF_OPS = 16         # FP64 operations per (row, sample): the eight channels'
-                      # values (five products, a subtract, two compares) and
-                      # adds, and acc's add
-
-
-def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
-    """(the least ms the card could take, "bytes" or "operations")."""
-    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / ops_per_s * 1e3}
-    by = max(times, key=times.get)
-    return times[by], by
-
-
-def redraw_bound(B: int, S: int, J: int) -> tuple[float, str]:
-    """The redraw kernel: sll read once (float32), kvec read once, the
-    (B, J) int64 draws written once."""
-    return bound(4 * B * S + 8 * J + 8 * B * J, REDRAW_OPS * B * S, FP32_OPS_PER_S)
-
-
-def cddf_bound(B: int, S: int, n_bins: int) -> tuple[float, str]:
-    """The CDDF sums: p, p2s, base and zloc (8 B each per (row, sample))
-    and five (S,) tables read once, acc (B, S) and hist (B, 8, n_bins)
-    float64 written once."""
-    nbytes = 8 * 4 * B * S + 8 * 5 * S + 8 * B * S + 8 * B * 8 * n_bins
-    return bound(nbytes, CDDF_OPS * B * S, FP64_OPS_PER_S)
-
-
-def null_bound(B: int, P: int, k: int) -> tuple[float, str]:
-    """The null evidence: y, mu, d (float32) and the mask (1 B) per pixel
-    and M (k float32 per pixel) read once, B float32 written once; per
-    pixel k (k + 1) / 2 + k multiply-adds (FP32, one operation each)
-    and ~10 more for the weights and sums."""
-    return bound(B * P * (4 * 3 + 4 * k + 1) + 4 * B,
-                 B * P * (k * (k + 1) // 2 + k + 10), FP32_OPS_PER_S)
-
-
 def redraw_check(calls, label: str, smi: str) -> dict:
     """The redraw kernel on captured chain inputs (``calls``: the (B, S)
     sample log likelihoods on the host, kvec, grid size), each call
@@ -2132,19 +2093,19 @@ def redraw_check(calls, label: str, smi: str) -> dict:
     return {**worst, "draws_moved": moved, "rows_moved": rows, "draws": total}
 
 
-def redraw_times(x, kv, grid: int, reps: int) -> dict:
+def redraw_times(x, kv, grid: int, reps: int, samples: list | None = None) -> dict:
     """The redraw kernel's and its plain sequence's ms on (x, kv, grid) on
     the card, the kernel twice and the plain sequence between: ``ms``,
     ``ms_2`` and ``plain_ms`` as ``cuda_ms`` times them, every other
     kernel of the kernels line too (the host's issue of each call
     included where it is the longer); ``queued_ms``, ``queued_ms_2`` and
     ``plain_queued_ms`` queued behind a spin kernel (the card's time
-    alone)."""
+    alone).  ``samples``: as ``cuda_ms``'s, for ``ms``."""
     from gp_dla_detection_tpu_torch.ops import redraw
 
     kernel = lambda: redraw.inverse_cdf_grid(x, kv, grid)
     plain = lambda: redraw.inverse_cdf_grid_reference(x, kv, grid)
-    return {"ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, reps),
+    return {"ms": cuda_ms(kernel, reps, samples), "plain_ms": cuda_ms(plain, reps),
             "ms_2": cuda_ms(kernel, reps), "queued_ms": queued_ms(kernel, reps),
             "plain_queued_ms": queued_ms(plain, reps), "queued_ms_2": queued_ms(kernel, reps)}
 
@@ -2467,7 +2428,7 @@ def bench_phase(smi: str, seed: int) -> dict:
     # ---- both kernels at B = 1024 on the bench's workload, against B = 128
     order = np.argsort(prob["offsets"], kind="stable")
     offsets, nhis = prob["offsets"][order], prob["nhis"][order]
-    kin, _ = kernel_inputs(prob, params, offsets, nhis, B, torch.device("cuda"), torch.float32)
+    kin, _ = RL.kernel_inputs(prob, params, offsets, nhis, B, torch.device("cuda"), torch.float32)
     P6 = P + 2 * params.instrument.width
     draw_idx, n_draws = replicate_draw_pattern(S, 256, 4)
     gen = np.random.default_rng(seed + 6)
@@ -2486,19 +2447,23 @@ def bench_phase(smi: str, seed: int) -> dict:
         "pair": lambda rows: evidence.sample_log_likelihoods_pair_reference(
             *[t[rows] for t in kin], z2[rows], n2[rows], window=window),
     }
-    kernels = {}
+    kernels, placed = {}, []   # placed: the B = 1024 times and work, for phase 12
     for name, call in calls.items():
-        ms = cuda_ms(lambda: call(slice(None)), 3)
+        samples = []
+        ms = cuda_ms(lambda: call(slice(None)), 3, samples)
         full = call(slice(None))
         same = all(torch.equal(full[i:i + BATCH], call(slice(i, i + BATCH)))
                    for i in range(0, B, BATCH))
         # the plain version on the bench's own inputs and window: the first
         # BATCH rows, carried to all B rows by the bit-identity above
         err = normalized_error(full[:BATCH], plain[name](slice(0, BATCH)))
-        bound = evidence_bound(B, S, P, P6, k, 3, window, name == "pair", n_draws)
+        bound = RL.evidence_bound(B, S, P, P6, k, 3, window, name == "pair", n_draws)
         kernels[name] = {"ms": ms, "bound_ms": bound[0], "bound_pipe": bound[1],
                          "rows_equal_b128": same, "max_normalized_err": err[0],
                          "max_abs_err": err[1]}
+        placed.append({"name": "evidence_pair_f32_r4" if name == "pair" else "evidence_single_f32",
+                       "ms": ms, "gpu": samples[0], "published": bound,
+                       "work": RL.evidence_work(B, S, P, P6, k, 3, window, name == "pair", n_draws)})
         say(f"phase 10: {name} kernel at B={B} S={S} P={P} k={k} windowed"
             + (" (R=4 layout)" if name == "pair" else "")
             + f": {ms:.2f} ms; bound {bound[0]:.2f} ms by the {bound[1]} "
@@ -2511,7 +2476,22 @@ def bench_phase(smi: str, seed: int) -> dict:
             fail(f"phase 10: the {name} kernel disagrees with its plain version on the bench's "
                  f"inputs: {err[0]:.3e} >= {NORMALIZED_BOUND}")
         del full
-    del kin, z2, n2, cols
+    # the pair at R = 1 (every base draw its own) on the same inputs: its
+    # time at B = 1024 for phase 12 only
+    cols1 = torch.as_tensor(gen.integers(0, S, (B, S)), device="cuda")
+    z2, n2 = kin[7].gather(1, cols1).contiguous(), kin[8].gather(1, cols1).contiguous()
+    samples = []
+    ms_r1 = cuda_ms(lambda: evidence.sample_log_likelihoods_pair(
+        *kin, z2, n2, window=window, base_replicates=1), 3, samples)
+    bound_r1 = RL.evidence_bound(B, S, P, P6, k, 3, window, True, S)
+    kernels["pair"]["ms_r1"] = ms_r1
+    say(f"phase 10: pair kernel at B={B} S={S} P={P} k={k} windowed, R=1: {ms_r1:.2f} ms; "
+        f"bound {bound_r1[0]:.2f} ms by the {bound_r1[1]} ({bound_r1[0] / ms_r1:.2f} of it "
+        f"reached) ({smi})")
+    placed.append({"name": "evidence_pair_f32_r1", "ms": ms_r1, "gpu": samples[0],
+                   "published": bound_r1,
+                   "work": RL.evidence_work(B, S, P, P6, k, 3, window, True, S)})
+    del kin, z2, n2, cols, cols1
 
     # ---- the fused lean chain at batches 1024, 256 and 128, CDDF inputs on
     from gp_dla_detection_tpu_torch import cddf_inputs
@@ -2666,8 +2646,11 @@ def bench_phase(smi: str, seed: int) -> dict:
     redraw_bench = redraw_check(big_redraws, "phase 10", smi)
     redraw_rows_alone(x, kv, grid, "phase 10")
     x, kv = x.cuda(), kv.cuda()
-    redraw_b = redraw_times(x, kv, grid, 10)
-    redraw_b_bound = redraw_bound(*x.shape, kv.numel())
+    samples = []
+    redraw_b = redraw_times(x, kv, grid, 10, samples)
+    redraw_b_bound = RL.redraw_bound(*x.shape, kv.numel())
+    placed.append({"name": "redraw_f32", "ms": redraw_b["ms"], "gpu": samples[0],
+                   "published": redraw_b_bound, "work": RL.redraw_work(*x.shape, kv.numel())})
     say(f"phase 10: redraw kernel at B={x.shape[0]} S={x.shape[1]} grid {grid}: "
         f"{redraw_time_line(redraw_b, redraw_b_bound)}; rows bit-identical at B=1, 128 "
         f"and {x.shape[0]} and permuted ({smi})")
@@ -2683,10 +2666,14 @@ def bench_phase(smi: str, seed: int) -> dict:
     sums_times, sums_bounds, sums_library, splits = {}, {}, {}, {}
     for n in (BATCH, B):
         part = rows(n)
-        sums_times[n] = (cuda_ms(lambda: cddf_inputs.cddf_sums(*part), 10),
+        samples = []
+        sums_times[n] = (cuda_ms(lambda: cddf_inputs.cddf_sums(*part), 10, samples),
                          cuda_ms(lambda: cddf_inputs.cddf_sums_reference(*part), 5),
                          cuda_ms(lambda: cddf_inputs.cddf_sums(*part), 10))
-        sums_bounds[n] = cddf_bound(n, S, n_bins)
+        sums_bounds[n] = RL.cddf_bound(n, S, n_bins)
+        if n == B:
+            placed.append({"name": "cddf_sums_f64", "ms": sums_times[n][0], "gpu": samples[0],
+                           "published": sums_bounds[n], "work": RL.cddf_work(n, S, n_bins)})
         sums_library[n] = scatter_add_ms(part, cddf_inputs.cddf_sums(*part)[0])
         sums_host = host_ms(lambda: cddf_inputs.cddf_sums(*part))
         say(f"phase 10: CDDF sums kernel at B={n} S={S} ({cddf_inputs.N_CHANNELS} x {n_bins} bins, "
@@ -2739,10 +2726,14 @@ def bench_phase(smi: str, seed: int) -> dict:
     null_times, null_bounds, null_host = {}, {}, {}
     for n in (BATCH, B):
         part = [a[:n] for a in null_args]
-        null_times[n] = (cuda_ms(lambda: low_rank_mvn.null_log_likelihoods(*part), 10),
+        samples = []
+        null_times[n] = (cuda_ms(lambda: low_rank_mvn.null_log_likelihoods(*part), 10, samples),
                          cuda_ms(lambda: low_rank_mvn.null_log_likelihoods_reference(*part), 5),
                          cuda_ms(lambda: low_rank_mvn.null_log_likelihoods(*part), 10))
-        null_bounds[n] = null_bound(n, P, k)
+        null_bounds[n] = RL.null_bound(n, P, k)
+        if n == B:
+            placed.append({"name": "null_evidence_f32", "ms": null_times[n][0], "gpu": samples[0],
+                           "published": null_bounds[n], "work": RL.null_work(n, P, k)})
         null_host[n] = host_ms(lambda: low_rank_mvn.null_log_likelihoods(*part))
     say(f"phase 10: null evidence kernel on the bench's {B} spectra (P={P}, k={k}): vs plain f32 "
         f"normalized {null_err[0]:.3e}, abs {null_err[1]:.3e}; vs f64 normalized {null_err64[0]:.3e} "
@@ -2761,7 +2752,7 @@ def bench_phase(smi: str, seed: int) -> dict:
     del null_args, null_out, null_plain, null_f64
     say("phase 10 ok")
     return {"kernel_line": kernel_line, "chain_line": chain_line, "driver_line": driver_line,
-            "sweep": sweep, "kernels": kernels, "chain_launches": big_launches,
+            "sweep": sweep, "kernels": kernels, "chain_launches": big_launches, "placed": placed,
             "redraw": {**redraw_bench, **redraw_b, "bound_ms": redraw_b_bound[0],
                        "bound_by": redraw_b_bound[1]},
             "sums": {**sums_bench, "times": sums_times, "bounds": sums_bounds,
@@ -2774,30 +2765,43 @@ def bench_phase(smi: str, seed: int) -> dict:
                      "bounds": null_bounds}}
 
 
-def script_run(argv: list[str], label: str) -> str:
-    """``python <argv>`` from the repo root as a user runs it, its
-    output printed; its stdout, or the phase fails with the tail."""
-    import signal
-
-    t0 = time.perf_counter()
-    # a session of its own: on a timeout its workers go down with it
-    proc = subprocess.Popen(
+def start_script(argv: list[str]) -> subprocess.Popen:
+    """``python <argv>`` from the repo root as a user runs it, in a
+    session of its own (on a timeout its workers go down with it)."""
+    return subprocess.Popen(
         [sys.executable, *argv], cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, start_new_session=True,
     )
+
+
+def finish_script(proc: subprocess.Popen, label: str, phase: str = "11",
+                  timeout: float = SURVEY_TIMEOUT,
+                  prefixes: tuple = ("- ", "built ", "artifacts ")) -> str:
+    """A ``start_script`` process's stdout once it exits 0, its report
+    lines (those that start with one of ``prefixes``) printed; else the
+    phase fails with the tail."""
+    import signal
+
+    t0 = time.perf_counter()
     try:
-        stdout, stderr = proc.communicate(timeout=SURVEY_TIMEOUT)
+        stdout, stderr = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
-        fail(f"phase 11: {label} did not finish in {SURVEY_TIMEOUT} s")
+        fail(f"phase {phase}: {label} did not finish in {timeout} s")
     for line in stdout.splitlines():
-        if line.startswith("- ") or line.startswith("built ") or line.startswith("artifacts "):
-            say(f"phase 11 {label}: {line}")
+        if line.startswith(prefixes):
+            say(f"phase {phase} {label}: {line}")
     if proc.returncode:
-        fail(f"phase 11: {label} exited {proc.returncode} after "
+        fail(f"phase {phase}: {label} exited {proc.returncode} after "
              f"{time.perf_counter() - t0:.1f} s:\n{stdout[-3000:]}\n{stderr[-3000:]}")
     return stdout
+
+
+def script_run(argv: list[str], label: str, phase: str = "11", timeout: float = SURVEY_TIMEOUT,
+               prefixes: tuple = ("- ", "built ", "artifacts ")) -> str:
+    """``start_script`` then ``finish_script``."""
+    return finish_script(start_script(argv), label, phase, timeout, prefixes)
 
 
 def survey_phase(smi: str, seed: int) -> dict:
@@ -2933,41 +2937,157 @@ def survey_phase(smi: str, seed: int) -> dict:
             "classic_s": {b: v[0] for b, v in classic.items()}}
 
 
-def kernel_inputs(w, params, offsets, nhis, n, device, dtype, num_lines=3):
-    """Prepared per-spectrum inputs of the evidence kernel for the first
-    ``n`` spectra (the port's own _prepare_spectrum), samples sorted."""
-    import dataclasses
+def load_roofline():
+    """``scripts/torch_roofline.py`` as a module."""
+    import importlib.util
 
-    import numpy as np
-    import torch
+    spec = importlib.util.spec_from_file_location("torch_roofline", ROOFLINE_SCRIPT)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
 
-    from gp_dla_detection_tpu_torch.inference import _prepare_spectrum
 
-    params = dataclasses.replace(params, num_lines=num_lines)
-    t = lambda a: torch.as_tensor(np.asarray(a)[:n] if np.ndim(a) else a, device=device).to(dtype)
-    prep = _prepare_spectrum(
-        t(w["wavelengths"]), t(w["flux"]), t(w["noise_variance"]),
-        torch.as_tensor(w["mask"][:n], device=device), t(w["z_qso"]),
-        torch.as_tensor(w["grid"], device=device).to(dtype),
-        torch.as_tensor(w["mu"], device=device).to(dtype),
-        torch.as_tensor(w["M"], device=device).to(dtype),
-        torch.as_tensor(w["log_omega"], device=device).to(dtype),
-        w["log_c_0"], w["log_tau_0"], w["log_beta"], params,
-    )
-    off = torch.as_tensor(offsets, device=device).to(dtype)
-    z = prep["min_z_dla"][:, None] + (prep["max_z_dla"] - prep["min_z_dla"])[:, None] * off[None, :]
-    nhi = torch.as_tensor(nhis, device=device).to(dtype)[None, :].expand(z.shape).contiguous()
-    args = (
-        prep["padded_wavelengths"], t(w["flux"]), prep["mu"], prep["M"],
-        prep["omega2"], t(w["noise_variance"]), prep["valid"], z, nhi,
-    )
-    return args, params
+def roofline_phase(smi: str, placed: list[dict]) -> dict:
+    """Phase 12: the measured roofline in this process: every ceiling of
+    ``torch_roofline.measure_ceilings`` held to its plain chain and to
+    1.05x its published peak, then phase 10's B = 1024 time of each
+    kernel (``placed``: its time, nvidia-smi sample, published-peak bound
+    and work on phase 10's inputs) placed against the bound at the
+    measured ceilings (``torch_roofline.kernel_row``).  A kernel faster
+    than that bound fails: its op model over-counts or a ceiling reads
+    low."""
+    t0 = time.perf_counter()
+    try:
+        ceilings = RL.measure_ceilings(say=lambda m: say(f"phase 12: {m}"))
+    except RuntimeError as exc:
+        fail(f"phase 12: {exc}")
+    rates = RL.class_rates(ceilings)
+    rows = [RL.kernel_row(p["name"], p["ms"], p["work"], p["published"], rates, p["gpu"])
+            for p in placed]
+    for row in rows:
+        say(f"phase 12: {RL.kernel_row_text(row)}")
+    names = sorted(row["name"] for row in rows)
+    want = sorted(["evidence_single_f32", "evidence_pair_f32_r1", "evidence_pair_f32_r4",
+                   "redraw_f32", "cddf_sums_f64", "null_evidence_f32"])
+    if names != want:
+        fail(f"phase 12: kernels placed {names}, expected {want}")
+    fast = [row["name"] for row in rows if not 0 < row["measured_share"] <= 1]
+    if fast:
+        fail(f"phase 12: {fast} faster than the bound at the measured ceilings")
+    say(f"phase 12 ok ({time.perf_counter() - t0:.1f} s): FFMA {ceilings['ffma']['rate']:.4e}/s, "
+        f"TF32 mma.sync {ceilings['mma_tf32']['rate']:.4e} FLOP/s (3xTF32 "
+        f"{ceilings['mma_tf32_3x']['rate']:.4e}), read {ceilings['read_bandwidth']['rate']:.4e} "
+        f"B/s ({smi})")
+    return {"ceilings": ceilings, "kernels": {row["name"]: row for row in rows}}
+
+
+def marked(text: str, marker: str) -> dict:
+    lines = [ln for ln in text.splitlines() if ln.startswith(marker + " {")]
+    if len(lines) != 1:
+        fail(f"no single {marker} line in the output")
+    return json.loads(lines[0][len(marker) + 1:])
+
+
+def training_phase(smi: str) -> dict:
+    """Phase 13: ``scripts/torch_training_convergence.py`` as a user runs
+    it, on the card in float64: ``compare`` (part B, TRAINING_B's N and
+    budget, the JAX record's) with both optimizers converged, their NLLs
+    within TRAINING_RTOL of each other and TRAINING_JAX_RTOL of the
+    record; ``part-a`` at TRAINING_A quasars, SIGKILLed after a checkpoint
+    and resumed, ended by a convergence test, its NLL within TRAINING_RTOL
+    of the JAX record's.  The two run side by side on the card."""
+    import shutil
+    import signal
+    import tempfile
+
+    t0 = time.perf_counter()
+    script = "scripts/torch_training_convergence.py"
+    wd = Path(tempfile.mkdtemp(prefix="gpdla_training_"))
+    procs = {}
+    try:
+        # both at once: each is bound by its host's issue of small launches,
+        # and the card has room for both (their times are side by side's)
+        procs["part B"] = start_script([script, "compare", "--n-quasars", TRAINING_B[0],
+                                        "--budget", TRAINING_B[1], "--dtype", "float64"])
+        procs["part A"] = start_script([script, "part-a", "--n-quasars", TRAINING_A, "--dtype",
+                                        "float64", "--workdir", str(wd)])
+        outs = {label: finish_script(proc, label, "13", HARNESS_TIMEOUT, HARNESS_LINES)
+                for label, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        shutil.rmtree(wd, ignore_errors=True)
+    b = marked(outs["part B"], "PART B")
+    vs_jax = b["rel_diff_vs_jax"] or {}
+    say(f"phase 13 part B: N = {TRAINING_B[0]}: host {b['host']['final_nll']:.10e} "
+        f"({b['host']['iterations']} iterations, {b['host']['fun_evals']} evaluations, "
+        f"{b['host']['wall_s']:.1f} s), device {b['device']['final_nll']:.10e} "
+        f"({b['device']['iterations']}, {b['device']['fun_evals']}, {b['device']['wall_s']:.1f} s, "
+        f"{b['device']['scalar_reads_per_eval']:.2f} reads an evaluation), side by side with "
+        f"part A; relative difference {b['rel_diff']:.3e}; vs the JAX record {vs_jax}; the "
+        f"objective twice at one point: {b['bits_twice']} ({smi})")
+    if not b["both_converged"] or not b["rel_diff"] < TRAINING_RTOL:
+        fail(f"phase 13: part B converged {b['both_converged']}, relative NLL difference "
+             f"{b['rel_diff']:.3e}")
+    if set(vs_jax) != {"host", "device"} or not max(vs_jax.values()) < TRAINING_JAX_RTOL:
+        fail(f"phase 13: part B's NLLs are {vs_jax} from the JAX record")
+    a = marked(outs["part A"], "PART A")
+    say(f"phase 13 part A: N = {TRAINING_A}: killed {a['killed']} after the checkpoint at "
+        f"iteration {a['checkpoint_iteration_at_kill']} (the worker running "
+        f"{a['kill_met_running_worker']}), resumed to '{a['termination']}' at iteration "
+        f"{a['iterations']} ({a['fun_evals']} evaluations), NLL {a['final_nll']:.9e} vs the JAX "
+        f"record {a['jax_recorded_nll']} (relative {a['rel_diff_vs_jax']}); resumed leg "
+        f"{a['wall_s']:.1f} s, {a['s_per_eval'] * 1e3:.2f} ms an evaluation, peak "
+        f"{a['peak_device_memory_gb']:.2f} GB; {a['wall_total_s']:.1f} s in all; the objective "
+        f"twice: {a['bits_twice']} ({smi})")
+    if (not a["killed"] or not a["kill_met_running_worker"]
+            or a["checkpoint_iteration_at_kill"] is None or not a["converged"]):
+        fail(f"phase 13: part A killed {a['killed']} (the worker running "
+             f"{a['kill_met_running_worker']}) at {a['checkpoint_iteration_at_kill']}, "
+             f"ended by '{a['termination']}'")
+    if not a["rel_diff_vs_jax"] < TRAINING_RTOL:
+        fail(f"phase 13: part A's NLL is {a['rel_diff_vs_jax']:.3e} from the JAX record")
+    say(f"phase 13 ok ({time.perf_counter() - t0:.1f} s)")
+    return {"part_b": b, "part_a": a}
+
+
+def universe_phase(smi: str) -> dict:
+    """Phase 14: ``scripts/torch_synthetic_universe.py`` and ``--multi``
+    as a user runs them (no device, dtype or backend: the card, float32,
+    the kernels): every assertion of the JAX harness, one single (and
+    pair) launch per batch."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, argv, batch in (("single", [], 256), ("multi", ["--multi"], 64)):
+        out = script_run(["scripts/torch_synthetic_universe.py", *argv], name, "14",
+                         HARNESS_TIMEOUT, HARNESS_LINES)
+        u = marked(out, "UNIVERSE")
+        n_batches = -(-u["n_spectra"] // batch)
+        want = {"single": n_batches, "null": n_batches,
+                "pair": n_batches if name == "multi" else 0}
+        if not u["ok"] or any(u["launches"][k] != v for k, v in want.items()):
+            fail(f"phase 14 {name}: checks {u['checks']}, launches {u['launches']} for "
+                 f"{n_batches} batches")
+        runs[name] = u
+    s, m = runs["single"], runs["multi"]
+    say(f"phase 14 ok ({time.perf_counter() - t0:.1f} s): single {s['true_positives']}/"
+        f"{s['injected']} found, {s['false_positives']} false positives, recovered "
+        f"{s['recovered_in_range']:.2f} of {s['injected_in_range']} in z = [2.0, 3.4], dN/dX "
+        f"{s['recovered_dndx']:.4f} (injected {s['injected_dndx']:.4f}), {s['wall_s']:.2f} s; "
+        f"multi confusion {m['confusion']}, >=1-DLA {m['acc_ge1']:.3f}, 2-DLA {m['acc_2dla']:.3f}, "
+        f"pair |dz| median {m['pair_dz_median']}, {m['wall_s']:.2f} s ({smi})")
+    return runs
 
 
 def main() -> None:
+    global RL
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     # ---- phase 1: the card
     try:
@@ -2984,7 +3104,8 @@ def main() -> None:
         from gp_dla_detection_tpu_torch.models.qso_model import GPModel
         from gp_dla_detection_tpu_torch.ops import evidence, redraw
         from gp_dla_detection_tpu_torch.ops.low_rank_mvn import full_fp32_matmul
-    except ImportError as exc:
+        RL = load_roofline()
+    except (ImportError, OSError) as exc:
         fail(f"the port is not importable beside this script: {exc}")
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -3030,7 +3151,7 @@ def main() -> None:
         fail("no sample window at production shapes")
     worst = (0.0, 0.0)
     for num_lines, n_cmp, windows in ((3, 4, (window, None)), (31, 2, (None, window))):
-        kin, kparams = kernel_inputs(w, params, offsets, nhis, n_cmp, device, torch.float32, num_lines)
+        kin, kparams = RL.kernel_inputs(w, params, offsets, nhis, n_cmp, device, torch.float32, num_lines)
         for win in windows:
             out = evidence.sample_log_likelihoods(
                 *kin, num_lines=num_lines, instrument=kparams.instrument, window=win
@@ -3046,7 +3167,7 @@ def main() -> None:
                 fail(f"kernel disagrees with its plain version: {err[0]:.3e} >= {NORMALIZED_BOUND}")
             if num_lines == 3 and win == window:
                 worst = err
-                kin64, _ = kernel_inputs(w, params, offsets, nhis, n_cmp, device, torch.float64)
+                kin64, _ = RL.kernel_inputs(w, params, offsets, nhis, n_cmp, device, torch.float64)
                 ref64 = evidence.sample_log_likelihoods_reference(
                     *kin64, instrument=kparams.instrument, window=None, sample_chunk=500
                 )
@@ -3056,7 +3177,7 @@ def main() -> None:
                 if not err64[0] < F64_BOUND:
                     fail(f"kernel disagrees with the float64 path: {err64[0]:.3e} >= {F64_BOUND}")
     # the scale demo's batch shape (twice the table workspace)
-    kin, _ = kernel_inputs(w, params, offsets, nhis, SCALE_BATCH, device, torch.float32)
+    kin, _ = RL.kernel_inputs(w, params, offsets, nhis, SCALE_BATCH, device, torch.float32)
     err256 = normalized_error(evidence.sample_log_likelihoods(*kin, window=window),
                               evidence.sample_log_likelihoods_reference(*kin, window=window))
     say(f"phase 3: 3 lines, window={window}, B={SCALE_BATCH}, S={len(offsets)}: kernel vs plain "
@@ -3064,14 +3185,14 @@ def main() -> None:
     if not err256[0] < NORMALIZED_BOUND:
         fail(f"kernel disagrees with its plain version at B={SCALE_BATCH}: {err256[0]:.3e}")
     worst = max(worst, err256)
-    kin, kparams = kernel_inputs(w, params, offsets, nhis, BATCH, device, torch.float32)
+    kin, kparams = RL.kernel_inputs(w, params, offsets, nhis, BATCH, device, torch.float32)
     run_kernel = lambda: evidence.sample_log_likelihoods(*kin, window=window)
     run_plain = lambda: evidence.sample_log_likelihoods_reference(*kin, window=window)
     kernel_ms = cuda_ms(run_kernel, 5)
     plain_ms = cuda_ms(run_plain, 2)
     kernel_ms_2 = cuda_ms(run_kernel, 5)
     S = len(offsets)
-    single_bound = evidence_bound(BATCH, S, params.pixel_pad, P6, 20, 3, window, False, 0)
+    single_bound = RL.evidence_bound(BATCH, S, params.pixel_pad, P6, 20, 3, window, False, 0)
     library_ms = contraction_ms(BATCH, S, params.pixel_pad, device)
     say(f"phase 3 ok: B={BATCH} S={S} P={params.pixel_pad} k=20 windowed: "
         f"kernel {kernel_ms:.2f} / {kernel_ms_2:.2f} ms (PR 3's design: {PR3_MS['single']} ms), "
@@ -3082,10 +3203,10 @@ def main() -> None:
         f"the yardstick: {library_ms:.2f} ms ({smi})")
     del kin
     # 31 lines on the full grid: the Voigt's per-line work dominates
-    kin31, kp31 = kernel_inputs(w, params, offsets, nhis, BATCH, device, torch.float32, 31)
+    kin31, kp31 = RL.kernel_inputs(w, params, offsets, nhis, BATCH, device, torch.float32, 31)
     lines31 = dict(num_lines=31, instrument=kp31.instrument, window=None)
     ms31 = cuda_ms(lambda: evidence.sample_log_likelihoods(*kin31, **lines31), 3)
-    bound31 = evidence_bound(BATCH, S, params.pixel_pad, P6, 20, 31, None, False, 0)
+    bound31 = RL.evidence_bound(BATCH, S, params.pixel_pad, P6, 20, 31, None, False, 0)
     say(f"phase 3: B={BATCH} S={S} P={params.pixel_pad} k=20, 31 lines, full grid: kernel "
         f"{ms31:.2f} ms; bound {bound31[0]:.2f} ms by the {bound31[1]} "
         f"({bound31[0] / ms31:.2f} of it reached) ({smi})")
@@ -3165,7 +3286,7 @@ def main() -> None:
 
     pair_worst = (0.0, 0.0)
     for num_lines, n_cmp, windows in ((3, 4, (window, None)), (31, 2, (None, window))):
-        kin, kparams = kernel_inputs(w, params, offsets, nhis, n_cmp, device, torch.float32, num_lines)
+        kin, kparams = RL.kernel_inputs(w, params, offsets, nhis, n_cmp, device, torch.float32, num_lines)
         z2, n2 = pair_draws(kin, n_cmp)
         for win in windows:
             out = evidence.sample_log_likelihoods_pair(
@@ -3190,7 +3311,7 @@ def main() -> None:
                 fail(f"pair kernel disagrees with its plain version: {err[0]:.3e} >= {NORMALIZED_BOUND}")
             pair_worst = max(pair_worst, err)
             if num_lines == 3 and win == window:
-                kin64, _ = kernel_inputs(w, params, offsets, nhis, n_cmp, device, torch.float64)
+                kin64, _ = RL.kernel_inputs(w, params, offsets, nhis, n_cmp, device, torch.float64)
                 ref64 = evidence.sample_log_likelihoods_pair_reference(
                     *kin64, z2.double(), n2.double(), instrument=kparams.instrument,
                     window=None, sample_chunk=500,
@@ -3202,7 +3323,7 @@ def main() -> None:
                     fail(f"pair kernel disagrees with the float64 path: {err64[0]:.3e} >= {F64_BOUND}")
     # the scale demo's batch shape, on draws of a generator of its own
     # (phase 6 draws its priors from rng)
-    kin, _ = kernel_inputs(w, params, offsets, nhis, SCALE_BATCH, device, torch.float32)
+    kin, _ = RL.kernel_inputs(w, params, offsets, nhis, SCALE_BATCH, device, torch.float32)
     z2, n2 = pair_draws(kin, SCALE_BATCH, np.random.default_rng(args.seed + 5))
     pair_err256 = normalized_error(
         evidence.sample_log_likelihoods_pair(*kin, z2, n2, window=window, base_replicates=4),
@@ -3213,7 +3334,7 @@ def main() -> None:
     if not pair_err256[0] < NORMALIZED_BOUND:
         fail(f"pair kernel disagrees with its plain version at B={SCALE_BATCH}: {pair_err256[0]:.3e}")
     pair_worst = max(pair_worst, pair_err256)
-    kin, kparams = kernel_inputs(w, params, offsets, nhis, BATCH, device, torch.float32)
+    kin, kparams = RL.kernel_inputs(w, params, offsets, nhis, BATCH, device, torch.float32)
     z2, n2 = pair_draws(kin, BATCH)
     run_pair = lambda R: evidence.sample_log_likelihoods_pair(
         *kin, z2, n2, window=window, base_replicates=R
@@ -3226,7 +3347,7 @@ def main() -> None:
     pair_ms_2 = cuda_ms(lambda: run_pair(4), 5)
     pair_r1_ms = cuda_ms(lambda: run_pair(1), 5)
     single_ms_same_call = cuda_ms(lambda: evidence.sample_log_likelihoods(*kin, window=window), 5)
-    pair_bound = evidence_bound(BATCH, S, params.pixel_pad, P6, 20, 3, window, True, n_draws)
+    pair_bound = RL.evidence_bound(BATCH, S, params.pixel_pad, P6, 20, 3, window, True, n_draws)
     say(f"phase 5 ok: B={BATCH} S={S} P={params.pixel_pad} k=20 windowed pair, R=4 layout: "
         f"kernel {pair_ms:.2f} / {pair_ms_2:.2f} ms at R=4 (PR 3's design: {PR3_MS['pair R=4']} "
         f"ms), {pair_r1_ms:.2f} ms at R=1 (bit-identical), plain {pair_plain_ms:.2f} ms; single "
@@ -3239,7 +3360,7 @@ def main() -> None:
     z2, n2 = pair_draws(kin31, BATCH, np.random.default_rng(args.seed + 4))
     pair_ms31 = cuda_ms(lambda: evidence.sample_log_likelihoods_pair(
         *kin31, z2, n2, **lines31, base_replicates=4), 3)
-    pair_bound31 = evidence_bound(BATCH, S, params.pixel_pad, P6, 20, 31, None, True, n_draws)
+    pair_bound31 = RL.evidence_bound(BATCH, S, params.pixel_pad, P6, 20, 31, None, True, n_draws)
     say(f"phase 5: B={BATCH} S={S} P={params.pixel_pad} k=20, 31 lines, full grid, R=4: pair "
         f"kernel {pair_ms31:.2f} ms; bound {pair_bound31[0]:.2f} ms by the {pair_bound31[1]} "
         f"({pair_bound31[0] / pair_ms31:.2f} of it reached) ({smi})")
@@ -3385,7 +3506,7 @@ def main() -> None:
     x6, kv6, grid6 = seen["redraws"][0]
     x6, kv6 = x6.cuda(), kv6.cuda()
     redraw6_t = redraw_times(x6, kv6, grid6, 20)
-    redraw6_bound = redraw_bound(*x6.shape, kv6.numel())
+    redraw6_bound = RL.redraw_bound(*x6.shape, kv6.numel())
     say(f"phase 6: redraw kernel at B={x6.shape[0]} S={x6.shape[1]} grid {grid6}: "
         f"{redraw_time_line(redraw6_t, redraw6_bound)}; rows bit-identical at B=1, 128 "
         f"and permuted ({smi})")
@@ -3457,15 +3578,47 @@ def main() -> None:
     survey = survey_phase(smi, args.seed)
     sl = survey["launches"]
 
-    # ---- phase 12: results
-    say(json.dumps({"kernels": [
+    # ---- phase 12: the measured roofline
+    roof = roofline_phase(smi, bp["placed"])
+
+    def roof_keys(name: str) -> dict:
+        """Phase 12's placing of the kernel's ``ms_b1024`` (phase 10's)."""
+        k = roof["kernels"][name]
+        return {"measured_bound_ms": k["measured_bound_ms"], "measured_share": k["measured_share"],
+                "bounding_class": k["bounding_class"], "published_share_b1024": k["published_share"],
+                "composite_ms": k["composite_ms"], "composite_share": k["composite_share"],
+                "class_ms": k["class_ms"], "gpu_b1024": k["gpu"]}
+
+    # ---- phase 13: GP training to convergence
+    training = training_phase(smi)
+
+    # ---- phase 14: the synthetic universe
+    universe = universe_phase(smi)
+    ul = {name: sum(u["launches"][name] for u in universe.values())
+          for name in ("single", "pair", "redraw", "cddf", "null")}
+
+    # ---- phase 15: results
+    say(f"chip_smoke: phases 1-14 passed in {time.perf_counter() - t_script:.1f} s")
+    # the line holds what this run measured and what follows from it: the
+    # published peaks, the JAX record and the runs' settings stay in the
+    # report lines above
+    without = lambda d, keys: {k: v for k, v in d.items() if k not in keys}
+    say(json.dumps({"ceilings": {name: without(c, {"published"})
+                                 for name, c in roof["ceilings"].items()}, "training": {
+        "part_b": {k: training["part_b"][k] for k in ("host", "device", "rel_diff",
+                                                       "rel_diff_vs_jax", "bits_twice")},
+        "part_a": without(training["part_a"], {"jax_recorded_nll", "n_quasars"})},
+        "universe": {name: without(u, {"n_spectra", "rate_dndx", "seed"})
+                     for name, u in universe.items()}, "kernels": [
         {
             "name": "evidence_single_f32",
             "route": "cuda",
             "source": "gp_dla_detection_tpu_torch/csrc/evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/evidence_pallas.py:106",
             "launches": rl["process"][0] + rl["multi"][0] + dl[0] + bench_launches["single"]
-                        + sl[0],
+                        + sl[0] + ul["single"],
+            "launches_universe": ul["single"],
+            **roof_keys("evidence_single_f32"),
             "launches_bench_default": bench_launches["single"],
             "launches_survey": sl[0],
             "launches_release_process": rl["process"][0],
@@ -3503,7 +3656,12 @@ def main() -> None:
             "route": "cuda",
             "source": "gp_dla_detection_tpu_torch/csrc/evidence.cu",
             "replaces": "gp_dla_detection_tpu/ops/evidence_pallas.py:106",
-            "launches": rl["multi"][1] + dl[1] + bench_launches["pair"] + sl[1],
+            "launches": rl["multi"][1] + dl[1] + bench_launches["pair"] + sl[1] + ul["pair"],
+            "launches_universe": ul["pair"],
+            **roof_keys("evidence_pair_f32_r4"),
+            "roofline_r1": {"ms_b1024": bk["pair"]["ms_r1"],
+                            "bound_ms_b1024": roof["kernels"]["evidence_pair_f32_r1"]["bound_ms"],
+                            **roof_keys("evidence_pair_f32_r1")},
             "launches_bench_default": bench_launches["pair"],
             "launches_survey": sl[1],
             "launches_lean_chain": lean_launches[1],
@@ -3546,7 +3704,9 @@ def main() -> None:
             "replaces": "gp_dla_detection_tpu/multi_dla.py:219 (device_inverse_cdf_grid, XLA: "
                         "no TPU kernel; the port's plain torch.cumsum sequence)",
             "launches": lean_launches[2] + rl["multi"][2] + bp["chain_line"]["launches"]["redraw"]
-                        + sl[2],
+                        + sl[2] + ul["redraw"],
+            "launches_universe": ul["redraw"],
+            **roof_keys("redraw_f32"),
             "launches_lean_chain": lean_launches[2],
             "launches_survey": sl[2],
             "launches_release_multi": rl["multi"][2],
@@ -3583,7 +3743,9 @@ def main() -> None:
             "source": "gp_dla_detection_tpu_torch/csrc/cddf.cu",
             "replaces": "gp_dla_detection_tpu/cddf_inputs.py:444 (the reducer's acc.at[].add and "
                         "masked products, XLA: no TPU kernel; the port's plain scatter_add_ sums)",
-            "launches": rl["multi"][3] + bp["chain_launches"][3] + sl[3],
+            "launches": rl["multi"][3] + bp["chain_launches"][3] + sl[3] + ul["cddf"],
+            "launches_universe": ul["cddf"],
+            **roof_keys("cddf_sums_f64"),
             "launches_release_multi": rl["multi"][3],
             "launches_survey": sl[3],
             "launches_bench_chain_b1024": bp["chain_launches"][3],
@@ -3613,7 +3775,9 @@ def main() -> None:
             "replaces": "gp_dla_detection_tpu/ops/low_rank_mvn.py:141 (log_mvnpdf_low_rank, XLA: "
                         "no TPU kernel; the port's plain torch.sum / matmul / Cholesky sequence)",
             "launches": lean_launches[4] + rl["process"][4] + rl["multi"][4] + bp["chain_launches"][4]
-                        + sl[4],
+                        + sl[4] + ul["null"],
+            "launches_universe": ul["null"],
+            **roof_keys("null_evidence_f32"),
             "launches_lean_chain": lean_launches[4],
             "launches_survey": sl[4],
             "launches_release_process": rl["process"][4],
