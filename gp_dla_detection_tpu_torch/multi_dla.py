@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +41,7 @@ from .inference import (
 from .models.qso_model import GPModel
 from .ops import evidence, redraw
 from .runtime import resolve_backend, resolve_run
+from .utils.observability import driver_call, trace
 
 __all__ = [
     "MultiDLAResults",
@@ -525,6 +525,7 @@ def finalize_multi(
 # ---------------------------------------------------------------------------
 
 
+@driver_call
 def process_spectra_multi(
     model: GPModel,
     offset_samples,
@@ -682,56 +683,51 @@ def process_spectra_multi(
     def upload(item):
         # host slice/pad, the base draws' gather and the copy to the
         # card: no collectives
-        bi, start, stop = item
-        t0 = time.perf_counter()
+        _, start, stop = item
         batch = spectra.slice(slice(start, stop)).pad_to(super_batch).slice(rows)
         # per-batch gather: offsets[base] whole would be (N, S) per array
         bidx = base[start:stop]
         bidx = np.concatenate([bidx, np.repeat(bidx[-1:], super_batch - len(bidx), axis=0)])
         bidx = bidx[rows][:, cols]
-        up = transfers.upload(
+        return transfers.upload(
             (batch.wavelengths, dtype), (batch.flux, dtype), (batch.noise_variance, dtype),
             (batch.mask, torch.bool), (batch.z_qso, dtype), (offsets[bidx], dtype),
             (nhis[bidx], dtype),
         )
-        log.stage(bi, "upload", t0)
-        return up
 
     def issue(item, up):
         # the pair evaluation, enqueued; on a sample axis the rows'
         # gather (a collective, so here in program order)
-        bi = item[0]
-        t0 = time.perf_counter()
-        *spec, base_off, base_nhi = transfers.take(up)
-        lls = batch_dla2_log_likelihoods(
-            *spec, *model_args, base_off, base_nhi, params=params, min_sep_z=min_sep_z,
-            backend=backend, sample_window=window, sample_chunk=sample_chunk,
-        )
-        if split is not None:
-            lls = fetch_global(lls, mesh, SAMPLE_AXIS, dim=1)
-        fetched = transfers.to_host(lls)
-        log.stage(bi, "dispatch", t0)
-        return fetched
+        with trace("gpdla.stage.pair"):
+            *spec, base_off, base_nhi = transfers.take(up)
+            lls = batch_dla2_log_likelihoods(
+                *spec, *model_args, base_off, base_nhi, params=params, min_sep_z=min_sep_z,
+                backend=backend, sample_window=window, sample_chunk=sample_chunk,
+            )
+            if split is not None:
+                lls = fetch_global(lls, mesh, SAMPLE_AXIS, dim=1)
+        with trace("gpdla.stage.fetch"):
+            return transfers.to_host(lls)
 
     def complete(item, fetched):
         bi, start, stop = item
-        t0 = time.perf_counter()
         (lls,) = transfers.wait(fetched)
         lls = lls.numpy() if isinstance(lls, torch.Tensor) else lls
         rows_out = fetch_global(in_sample_order(lls, columns), mesh, DATA_AXIS)[: stop - start]
-        log.stage(bi, "fetch", t0)
-        out2[start:stop] = rows_out
         checkpoint_batch(
             writer, mesh, ckpt_dir, bi, done, expect, {"sample_log_likelihoods_dla2": rows_out}
         )
-        log.done(bi, stop - start)
+        out2[start:stop] = rows_out
+        return stop - start
 
     with BackgroundWriter() as writer:
         run_pipelined_split(
-            todo, upload, issue, complete, depth=pipeline_depth, threaded=dispatch_thread,
+            todo, *log.stages(upload, issue, complete), depth=pipeline_depth,
+            threaded=dispatch_thread,
         )
 
-    return finalize_multi(
-        single, out2, base, spectra.z_qso, prior_z_qsos, prior_num_dlas,
-        params,
-    )
+    with trace("gpdla.call.finalize"):
+        return finalize_multi(
+            single, out2, base, spectra.z_qso, prior_z_qsos, prior_num_dlas,
+            params,
+        )

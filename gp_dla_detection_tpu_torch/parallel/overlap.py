@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..utils.atomic_io import atomic_savez, atomic_write_json
+from ..utils.observability import trace
 
 __all__ = [
     "BackgroundWriter",
@@ -199,7 +200,8 @@ def run_pipelined_split(items, upload, issue, complete, depth: int = 2,
     inflight: deque = deque()
     try:
         while True:
-            kind, item, state = results.get()
+            with trace("gpdla.loop.wait_upload"):
+                kind, item, state = results.get()
             if kind == "done":
                 break
             if kind == "raise":
@@ -252,7 +254,8 @@ class BackgroundWriter:
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         if exc_type is None:
-            self.close()
+            with trace("gpdla.call.drain"):
+                self.close()
         else:
             self._pool.shutdown(wait=True, cancel_futures=True)
         return False
@@ -344,6 +347,7 @@ class Transfers:
     def wait(fetched) -> list:
         """The host values of :meth:`to_host`, once their copies landed."""
         host, done = fetched
-        if done is not None:
-            done.synchronize()
+        with trace("gpdla.batch.wait"):
+            if done is not None:
+                done.synchronize()
         return host

@@ -26,9 +26,8 @@ from __future__ import annotations
 
 import hashlib
 import json
-import threading
-import time
 import warnings
+from collections import defaultdict
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -36,8 +35,9 @@ import numpy as np
 import torch
 
 from ..params import Parameters
-from ..utils import ProgressMeter, env_flag
+from ..utils import ProgressMeter, trace
 from ..utils.atomic_io import atomic_savez, atomic_write_json
+from ..utils.observability import current_call, driver_call
 
 from ..inference import (
     _NUMPY_DTYPES,
@@ -182,18 +182,23 @@ def checkpoint_batch(writer, mesh: Mesh, ckpt_dir, bi: int, done: set, manifest:
     coordinator's write of batch ``bi``'s checkpoint and then of the
     manifest listing it (a no-op on other ranks and without a
     directory).  ``payload`` must not change after the call."""
-    if ckpt_dir and mesh.is_coordinator:
-        writer.submit(write_checkpoint, ckpt_dir, bi, done, manifest, payload)
+    with trace("gpdla.batch.checkpoint"):
+        if ckpt_dir and mesh.is_coordinator:
+            writer.submit(write_checkpoint, ckpt_dir, bi, done, manifest, payload,
+                          current_call().id)
 
 
-def write_checkpoint(ckpt_dir, bi: int, done: set, manifest: dict, payload: dict) -> None:
+def write_checkpoint(ckpt_dir, bi: int, done: set, manifest: dict, payload: dict,
+                     call: int) -> None:
     """Batch ``bi``'s npz, then the manifest listing it with every batch
     written before (``done``, which only the writer thread changes once
     the run has begun): a manifest never lists a batch whose file has not
-    landed."""
-    atomic_savez(ckpt_dir / f"batch_{bi:06d}.npz", compress=False, **payload)
-    done.add(bi)
-    atomic_write_json(ckpt_dir / "manifest.json", {**manifest, "completed_batches": sorted(done)})
+    landed.  ``call``: the driver call's id, for the span."""
+    with trace("gpdla.checkpoint.write", call=call, batch=bi):
+        atomic_savez(ckpt_dir / f"batch_{bi:06d}.npz", compress=False, **payload)
+        done.add(bi)
+        atomic_write_json(ckpt_dir / "manifest.json",
+                          {**manifest, "completed_batches": sorted(done)})
 
 
 def rank_rows(mesh: Mesh, per_device_batch: int) -> slice:
@@ -229,39 +234,77 @@ def in_sample_order(rows: np.ndarray, columns) -> np.ndarray:
 
 
 class BatchLog:
-    """Per-batch stage times (``GPDLA_DRIVER_TIMING=1``, the JAX drivers'
-    ``[driver]`` lines: upload, dispatch, fetch) and the progress meter;
-    the coordinator prints them.  ``upload`` is the host slice/pad and
-    the enqueue of the copy to the card, ``dispatch`` the enqueue of the
-    batch's work (``issue``), ``fetch`` the wait for its results and the
-    gathers (``complete``).  Stages may be timed from the upload
-    thread."""
+    """A driver call's batches: the span of each batch's three stages,
+    its ``[driver]`` line under ``GPDLA_DRIVER_TIMING=1`` (the JAX
+    drivers' lines: upload, dispatch, fetch seconds), read from those
+    spans, and the progress meter; the coordinator prints them.  Made in
+    a :func:`~..utils.observability.driver_call` right before the
+    batches, it ends the call's ``gpdla.call.setup``.
+
+    ``upload`` is ``gpdla.batch.upload`` (the host slice/pad and the
+    enqueue of the copy to the card, on the upload thread), ``dispatch``
+    ``gpdla.batch.issue`` (the enqueue of the batch's work), ``fetch``
+    the part of ``gpdla.batch.complete`` before its
+    ``gpdla.batch.checkpoint``: the wait for the results, the gathers and
+    the batch's host translation."""
 
     def __init__(self, mesh: Mesh, total: int, progress: bool):
-        self.on = mesh.is_coordinator
-        self.timing = self.on and env_flag("GPDLA_DRIVER_TIMING")
-        self.meter = ProgressMeter(total, unit="spectra") if progress and self.on else None
-        self.stages: dict[int, list[tuple[str, float]]] = {}
-        self.lock = threading.Lock()
+        call = current_call()
+        call.end_setup()
+        self.call = call.id
+        self.recorder = call.recorder if mesh.is_coordinator else None
+        self.meter = ProgressMeter(total, unit="spectra") if progress and mesh.is_coordinator else None
+        self.unprinted: dict[int | None, list] = defaultdict(list)
 
-    def stage(self, bi: int, what: str, t0: float) -> None:
-        """Batch ``bi``'s stage ``what`` took from ``t0`` (perf_counter)
-        until now."""
-        if self.timing:
-            seconds = time.perf_counter() - t0
-            with self.lock:
-                self.stages.setdefault(bi, []).append((what, seconds))
+    def stages(self, upload, issue, complete):
+        """``upload``, ``issue`` and ``complete`` of the pipelined loop,
+        each in its batch's span; ``complete`` returns the rows it kept,
+        which :meth:`done` counts once its span closed."""
+
+        def traced_upload(item):
+            with trace("gpdla.batch.upload", call=self.call, batch=item[0]):
+                return upload(item)
+
+        def traced_issue(item, uploaded):
+            with trace("gpdla.batch.issue", call=self.call, batch=item[0]):
+                return issue(item, uploaded)
+
+        def traced_complete(item, fetched):
+            with trace("gpdla.batch.complete", call=self.call, batch=item[0]):
+                rows = complete(item, fetched)
+            self.done(item[0], rows)
+
+        return traced_upload, traced_issue, traced_complete
 
     def done(self, bi: int, n: int) -> None:
-        with self.lock:
-            steps = self.stages.pop(bi, [])
-        if steps:
-            print(f"[driver] batch {bi}: " + ", ".join(f"{w} {t:.3f}s" for w, t in steps),
-                  flush=True)
+        """Batch ``bi`` is in, with ``n`` spectra: its line, the meter."""
+        if self.recorder is not None:
+            for span in self.recorder.drain():
+                self.unprinted[span.ids.get("batch")].append(span)
+            line = stage_line(bi, self.unprinted.pop(bi, []))
+            if line:
+                print(line, flush=True)
         if self.meter is not None:
             self.meter.update(n)
 
 
+def stage_line(bi: int, spans) -> str | None:
+    """Batch ``bi``'s ``[driver]`` line from its spans (None without any:
+    a batch resumed from its checkpoint)."""
+    by = {s.name: s for s in spans}
+    seconds = lambda t0, t1: (t1 - t0) * 1e-9
+    steps = [(what, seconds(by[name].t0_ns, by[name].t1_ns))
+             for what, name in (("upload", "gpdla.batch.upload"), ("dispatch", "gpdla.batch.issue"))
+             if name in by]
+    if "gpdla.batch.complete" in by and "gpdla.batch.checkpoint" in by:
+        steps.append(("fetch", seconds(by["gpdla.batch.complete"].t0_ns,
+                                       by["gpdla.batch.checkpoint"].t0_ns)))
+    if not steps:
+        return None
+    return f"[driver] batch {bi}: " + ", ".join(f"{w} {t:.3f}s" for w, t in steps)
+
+
+@driver_call
 def process_spectra_sharded(
     model: GPModel,
     offset_samples,
@@ -396,40 +439,35 @@ def process_spectra_sharded(
 
     def upload(item):
         # host slice/pad and the copy to the card: no collectives
-        bi, start, stop = item
-        t0 = time.perf_counter()
+        _, start, stop = item
         batch = spectra.slice(slice(start, stop)).pad_to(super_batch).slice(rows)
-        up = transfers.upload(
+        return transfers.upload(
             (batch.wavelengths, dtype), (batch.flux, dtype), (batch.noise_variance, dtype),
             (batch.mask, torch.bool), (batch.z_qso, dtype),
         )
-        log.stage(bi, "upload", t0)
-        return up
 
     def issue(item, up):
         # the batch's work, enqueued; on a sample axis the rows' gather
         # (a collective, so here in program order)
-        bi = item[0]
-        t0 = time.perf_counter()
-        out = batch_log_likelihoods(
-            *transfers.take(up), *model_args, params=params,
-            sample_chunk=config.sample_chunk, backend=backend, sample_window=window,
-            samples_sorted=block is not None,
-        )
-        sll = out["sample_log_likelihoods_dla"]
-        if split is not None:
-            # the whole rows, in original sample order
-            sll = in_sample_order(fetch_global(sll, mesh, SAMPLE_AXIS, dim=1), columns)
-            if lean:
-                sll = on_device(sll if order is None else sll[:, order])
-        small = [out["log_likelihood_no_dla"], out["min_z_dla"], out["max_z_dla"]]
-        fetched = transfers.to_host(*small, *(pack_lean(sll) if lean else (sll,)))
-        log.stage(bi, "dispatch", t0)
-        return fetched
+        with trace("gpdla.stage.single"):
+            out = batch_log_likelihoods(
+                *transfers.take(up), *model_args, params=params,
+                sample_chunk=config.sample_chunk, backend=backend, sample_window=window,
+                samples_sorted=block is not None,
+            )
+            sll = out["sample_log_likelihoods_dla"]
+            if split is not None:
+                # the whole rows, in original sample order
+                sll = in_sample_order(fetch_global(sll, mesh, SAMPLE_AXIS, dim=1), columns)
+                if lean:
+                    sll = on_device(sll if order is None else sll[:, order])
+            kept = pack_lean(sll) if lean else (sll,)
+        with trace("gpdla.stage.fetch"):
+            small = [out["log_likelihood_no_dla"], out["min_z_dla"], out["max_z_dla"]]
+            return transfers.to_host(*small, *kept)
 
     def complete(item, fetched):
         bi, start, stop = item
-        t0 = time.perf_counter()
         host = [v.numpy() if isinstance(v, torch.Tensor) else v for v in transfers.wait(fetched)]
         row = dict(zip(("log_likelihood_no_dla", "min_z_dla", "max_z_dla"), host))
         if lean:
@@ -446,21 +484,21 @@ def process_spectra_sharded(
             )
         keep = stop - start
         row = {k: fetch_global(v, mesh, DATA_AXIS)[:keep] for k, v in row.items()}
-        log.stage(bi, "fetch", t0)
-        store(start, stop, row)
         checkpoint_batch(writer, mesh, ckpt_dir, bi, done, expect, row)
-        log.done(bi, keep)
+        store(start, stop, row)
+        return keep
 
     with BackgroundWriter() as writer:
         run_pipelined_split(
-            todo, upload, issue, complete, depth=config.pipeline_depth,
+            todo, *log.stages(upload, issue, complete), depth=config.pipeline_depth,
             threaded=config.dispatch_thread,
         )
 
-    if lean:
-        post = posteriors_from_evidence(log_p_no_dla, log_p_dla, out_null, out_evidence)
-    else:
-        post = finalize_posteriors(log_p_no_dla, log_p_dla, out_null, out_samples)
+    with trace("gpdla.call.finalize"):
+        if lean:
+            post = posteriors_from_evidence(log_p_no_dla, log_p_dla, out_null, out_evidence)
+        else:
+            post = finalize_posteriors(log_p_no_dla, log_p_dla, out_null, out_samples)
     return InferenceResults(
         min_z_dlas=out_min_z,
         max_z_dlas=out_max_z,

@@ -69,7 +69,6 @@ Not ported: ``shard_map`` and the degradation ladders.
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from pathlib import Path
 
@@ -90,6 +89,8 @@ from ..inference import (
 )
 from ..models.qso_model import GPModel
 from ..runtime import resolve_run
+from ..utils import trace
+from ..utils.observability import driver_call
 from ..multi_dla import (
     MultiDLAResults,
     base_sample_perm,
@@ -168,6 +169,7 @@ def lean_base_columns(offsets, base_seed: int, replicates: int, sorted_axis: boo
     return cols.astype(np.int64), grid_size, order
 
 
+@driver_call
 def process_spectra_multi_lean(
     model: GPModel,
     offset_samples,
@@ -383,8 +385,7 @@ def process_spectra_multi_lean(
 
     def upload(item):
         # host slice/pad and the copy to the card: no collectives
-        bi, start, stop = item
-        t0 = time.perf_counter()
+        _, start, stop = item
         batch = spectra.slice(slice(start, stop)).pad_to(super_batch).slice(rows)
         arrays = [
             (batch.wavelengths, dtype), (batch.flux, dtype), (batch.noise_variance, dtype),
@@ -393,62 +394,59 @@ def process_spectra_multi_lean(
         if store_cddf_inputs:
             arrays += [(batch_vec(a, start, stop), dtype)
                        for a in (log_p_no_dla, log_p_dla, log_p0m, log_p1m, log_p2m)]
-        up = transfers.upload(*arrays)
-        log.stage(bi, "upload", t0)
-        return up
+        return transfers.upload(*arrays)
 
     def issue(item, up):
         # both stages, the redraw and the reductions, enqueued; no host
         # sync on a data-only mesh.  On a sample axis ("torch") the rows'
         # gathers are collectives, so here in program order
-        bi = item[0]
-        t0 = time.perf_counter()
         uploaded = transfers.take(up)
         spec, priors = uploaded[:5], uploaded[5:]
-        out1 = batch_log_likelihoods(
-            *spec, *model_args, off_orig, nh_orig, params=params,
-            sample_chunk=sample_chunk, backend=backend, sample_window=window,
-        )
-        sll = whole_rows(out1["sample_log_likelihoods_dla"])
-        ev1, map1 = pack_lean(sll)
-        # the kernel under "cuda" (a row's draws depend on that row alone),
-        # the plain version otherwise
-        redraw = device_inverse_cdf_grid if use_cuda else device_inverse_cdf_grid_reference
-        base_cols = redraw(sll, cols_dev, grid_size)
-        vals = base_tables[base_cols]                    # (B, S, 2)
-        if block is not None:
-            vals = vals[:, block].contiguous()
-        lls2 = whole_rows(batch_dla2_log_likelihoods(
-            *spec, *model_args, off_pair, nh_pair, vals[..., 0], vals[..., 1],
-            params=params, min_sep_z=min_sep_z, backend=backend,
-            sample_window=window, sample_chunk=sample_chunk,
-            base_replicates=R if use_cuda else 1, check_layout=False,
-        ))
-        ev2, map2, map_base = pack_lean_pair(lls2, base_cols)
+        with trace("gpdla.stage.single"):
+            out1 = batch_log_likelihoods(
+                *spec, *model_args, off_orig, nh_orig, params=params,
+                sample_chunk=sample_chunk, backend=backend, sample_window=window,
+            )
+            sll = whole_rows(out1["sample_log_likelihoods_dla"])
+            ev1, map1 = pack_lean(sll)
+        with trace("gpdla.stage.redraw"):
+            # the kernel under "cuda" (a row's draws depend on that row
+            # alone), the plain version otherwise
+            redraw = device_inverse_cdf_grid if use_cuda else device_inverse_cdf_grid_reference
+            base_cols = redraw(sll, cols_dev, grid_size)
+            vals = base_tables[base_cols]                    # (B, S, 2)
+            if block is not None:
+                vals = vals[:, block].contiguous()
+        with trace("gpdla.stage.pair"):
+            lls2 = whole_rows(batch_dla2_log_likelihoods(
+                *spec, *model_args, off_pair, nh_pair, vals[..., 0], vals[..., 1],
+                params=params, min_sep_z=min_sep_z, backend=backend,
+                sample_window=window, sample_chunk=sample_chunk,
+                base_replicates=R if use_cuda else 1, check_layout=False,
+            ))
+            ev2, map2, map_base = pack_lean_pair(lls2, base_cols)
         cddf = ()
         if store_cddf_inputs:
-            cddf = cddf_reduce(
-                cddf_consts, sll, ev1, out1["log_likelihood_no_dla"],
-                out1["min_z_dla"], out1["max_z_dla"], *priors, lls2, ev2, base_cols,
+            with trace("gpdla.stage.cddf"):
+                cddf = cddf_reduce(
+                    cddf_consts, sll, ev1, out1["log_likelihood_no_dla"],
+                    out1["min_z_dla"], out1["max_z_dla"], *priors, lls2, ev2, base_cols,
+                )
+        with trace("gpdla.stage.fetch"):
+            small = (
+                out1["log_likelihood_no_dla"], out1["min_z_dla"], out1["max_z_dla"],
+                ev1, map1, ev2, map2, map_base,
             )
-        small = (
-            out1["log_likelihood_no_dla"], out1["min_z_dla"], out1["max_z_dla"],
-            ev1, map1, ev2, map2, map_base,
-        )
-        # one copy of the vectors to the host; indices are exact in float64
-        fetched = transfers.to_host(torch.stack([v.to(torch.float64) for v in small]), *cddf)
-        log.stage(bi, "dispatch", t0)
-        return fetched
+            # one copy of the vectors to the host; indices are exact in float64
+            return transfers.to_host(torch.stack([v.to(torch.float64) for v in small]), *cddf)
 
     def complete(item, fetched):
         bi, start, stop = item
-        t0 = time.perf_counter()
         stacked, *cddf = transfers.wait(fetched)
         keep = stop - start
         vecs = list(fetch_global(stacked, mesh, DATA_AXIS, dim=1)[:, :keep])
         cddf = {k: fetch_global(v, mesh, DATA_AXIS)[:keep]
                 for k, v in zip(("cddf_hist", "cddf_ex"), cddf)}
-        log.stage(bi, "fetch", t0)
         # -1 = no finite sample: the catalog's fallback is index 0; the
         # pair MAPs keep -1 as the no-valid-pair flag
         vecs[4] = np.maximum(vecs[4], 0.0)
@@ -464,54 +462,56 @@ def process_spectra_multi_lean(
                 ex = cddf["cddf_ex"] = np.array(cddf["cddf_ex"])
                 pidx = ex[:, 3 * K : 4 * K].astype(np.int64)
                 ex[:, 3 * K : 4 * K] = np.where(pidx >= 0, order[np.maximum(pidx, 0)], -1)
+        checkpoint_batch(
+            writer, mesh, ckpt_dir, bi, done, {**expect, "base_seed": base_seed},
+            {**dict(zip(VEC_KEYS, vecs)), **cddf},
+        )
         for k, v in zip(VEC_KEYS, vecs):
             host_vecs[k][start:stop] = v
         if cddf:
             host_hist[start:stop] = cddf["cddf_hist"]
             host_ex[start:stop] = cddf["cddf_ex"]
-        checkpoint_batch(
-            writer, mesh, ckpt_dir, bi, done, {**expect, "base_seed": base_seed},
-            {**dict(zip(VEC_KEYS, vecs)), **cddf},
-        )
-        log.done(bi, keep)
+        return keep
 
     with BackgroundWriter() as writer:
         run_pipelined_split(
-            todo, upload, issue, complete, depth=pipeline_depth, threaded=dispatch_thread,
+            todo, *log.stages(upload, issue, complete), depth=pipeline_depth,
+            threaded=dispatch_thread,
         )
 
-    post = posteriors_from_evidence(
-        log_p_no_dla, log_p_dla,
-        host_vecs["log_likelihood_no_dla"], host_vecs["log_likelihood_dla"],
-    )
-    single = InferenceResults(
-        min_z_dlas=host_vecs["min_z_dla"],
-        max_z_dlas=host_vecs["max_z_dla"],
-        log_priors_no_dla=log_p_no_dla,
-        log_priors_dla=log_p_dla,
-        log_likelihoods_no_dla=host_vecs["log_likelihood_no_dla"],
-        log_likelihoods_dla=post["log_likelihoods_dla"],
-        sample_log_likelihoods_dla=None,
-        map_sample_inds=host_vecs["map_sample_ind"].astype(np.int64),
-        log_posteriors_no_dla=post["log_posteriors_no_dla"],
-        log_posteriors_dla=post["log_posteriors_dla"],
-        model_posteriors=post["model_posteriors"],
-        p_no_dlas=post["p_no_dlas"],
-        p_dlas=post["p_dlas"],
-    )
-    cddf_out = None
-    if store_cddf_inputs:
-        cddf_out = CDDFInputs(spec=cddf_spec, hist=host_hist, ex=host_ex, second=True)
-        cddf_out.validate()
-    # rows with no valid pair keep NaN evidence, as finalize_multi's
-    # np.nanmax of an all-NaN row does
-    return finalize_multi_from_evidence(
-        single, host_vecs["log_likelihood_dla2"], spectra.z_qso,
-        prior_z_qsos, prior_num, params,
-        map_sample_inds2=host_vecs["map_sample_ind2"].astype(np.int64),
-        map_base_sample_inds=host_vecs["map_base_sample_ind"].astype(np.int64),
-        cddf_inputs=cddf_out,
-    )
+    with trace("gpdla.call.finalize"):
+        post = posteriors_from_evidence(
+            log_p_no_dla, log_p_dla,
+            host_vecs["log_likelihood_no_dla"], host_vecs["log_likelihood_dla"],
+        )
+        single = InferenceResults(
+            min_z_dlas=host_vecs["min_z_dla"],
+            max_z_dlas=host_vecs["max_z_dla"],
+            log_priors_no_dla=log_p_no_dla,
+            log_priors_dla=log_p_dla,
+            log_likelihoods_no_dla=host_vecs["log_likelihood_no_dla"],
+            log_likelihoods_dla=post["log_likelihoods_dla"],
+            sample_log_likelihoods_dla=None,
+            map_sample_inds=host_vecs["map_sample_ind"].astype(np.int64),
+            log_posteriors_no_dla=post["log_posteriors_no_dla"],
+            log_posteriors_dla=post["log_posteriors_dla"],
+            model_posteriors=post["model_posteriors"],
+            p_no_dlas=post["p_no_dlas"],
+            p_dlas=post["p_dlas"],
+        )
+        cddf_out = None
+        if store_cddf_inputs:
+            cddf_out = CDDFInputs(spec=cddf_spec, hist=host_hist, ex=host_ex, second=True)
+            cddf_out.validate()
+        # rows with no valid pair keep NaN evidence, as finalize_multi's
+        # np.nanmax of an all-NaN row does
+        return finalize_multi_from_evidence(
+            single, host_vecs["log_likelihood_dla2"], spectra.z_qso,
+            prior_z_qsos, prior_num, params,
+            map_sample_inds2=host_vecs["map_sample_ind2"].astype(np.int64),
+            map_base_sample_inds=host_vecs["map_base_sample_ind"].astype(np.int64),
+            cddf_inputs=cddf_out,
+        )
 
 
 def process_spectra_multi_sharded(

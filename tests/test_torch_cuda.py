@@ -692,6 +692,46 @@ def test_fused_chain_does_not_depend_on_the_batch_at_an_odd_S(device):
     chain_batches_agree(device, (1, 3, 11), (offsets[:317], nhis[:317]))
 
 
+def test_fused_chain_issue_waits_for_nothing_with_its_spans_on(device, monkeypatch):
+    """The chain's ``issue`` (the kernels, R = 4, the CDDF inputs) under
+    ``torch.cuda.set_sync_debug_mode("error")`` with the span recorder
+    and ``torch.profiler`` on: no span waits for the card, and every
+    stage's span is there once a batch."""
+    import torch_distributed_worker as worker
+    from gp_dla_detection_tpu_torch.parallel import sharded_multi
+    from gp_dla_detection_tpu_torch.utils import observability
+
+    params, model, spectra, offsets, nhis, prior_z, _ = worker.port_problem()
+    model = model.to(device=device, dtype=torch.float32)
+
+    def run():
+        return sharded_multi.process_spectra_multi_lean(
+            model, offsets, nhis, spectra, prior_z, worker.prior_num(), params=params,
+            batch_size=4, store_cddf_inputs=True,
+        )
+
+    run()   # the kernels built and loaded outside the strict issue
+    real = sharded_multi.run_pipelined_split
+
+    def strict_split(items, upload, issue, complete, **kw):
+        def strict(item, uploaded):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return issue(item, uploaded)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        real(items, upload, strict, complete, **kw)
+
+    monkeypatch.setattr(sharded_multi, "run_pipelined_split", strict_split)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with observability.recording() as rec, torch.profiler.profile(activities=acts):
+        run()
+    n = -(-len(spectra) // 4)
+    names = [s.name for s in rec.drain()]
+    for stage in ("single", "redraw", "pair", "cddf", "fetch"):
+        assert names.count(f"gpdla.stage.{stage}") == n, stage
+
+
 def null_inputs(device, B=64, P=1274, k=20, seed=0):
     rng = np.random.default_rng(seed)
     mask = rng.uniform(size=(B, P)) > 0.1
