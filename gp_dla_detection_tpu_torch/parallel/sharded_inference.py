@@ -70,7 +70,7 @@ __all__ = ["ShardedRunConfig", "process_spectra_sharded", "run_fingerprint"]
 # resumes into this one or the other way round: the two agree to float32
 # rounding, not bit for bit.  Bump the version when the float32 numerics
 # of a backend change.
-PORT_TOKEN = "gp_dla_detection_tpu_torch|numerics:v2"
+PORT_TOKEN = "gp_dla_detection_tpu_torch|numerics:v3"
 
 _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 

@@ -4,16 +4,21 @@
 removed, on one GPU.
 
     python3 scripts/torch_evidence_ablation.py [--batch 128] [--reps 3]
+                                               [--source evidence.cu]
+                                               [--variants full,producers_idle,...]
 
 Each variant is the kernel's source with one edit (below), built with the
 port's nvcc flags into a temporary directory and loaded in place of the
 port's library; the single configuration and the pair configuration at
 R = 4 are timed (CUDA events) at the main path's shapes (chip_smoke.py's
 synthetic workload: B = 128, S = 10,000, P = 1274, k = 20, 3 lines,
-windowed), two rounds in turn.  A variant computes wrong evidences: only
-its time means something.  The difference between the full kernel and a
-variant is an upper bound on what the removed part costs, since the rest
-may then overlap differently.  Needs a CUDA device and nvcc.
+windowed), two rounds in turn.  ``--source`` takes another version of
+the kernel with the same C interface (e.g. one from git history),
+``--variants`` a few of the variants.  A variant computes wrong
+evidences: only its time means something.  The difference between the
+full kernel and a variant is an upper bound on what the removed part
+costs, since the rest may then overlap differently.  Needs a CUDA device
+and nvcc.
 
 Variants:
   full                 the kernel as it is
@@ -50,14 +55,14 @@ MMA3 = ("          mma_tf32(acc[mt][j], a_lo[mt], b0h, b1h);   // small terms fi
         "          mma_tf32(acc[mt][j], a_hi[mt], b0h, b1h);")
 
 
-def variants(src: str) -> dict[str, str]:
+def variants(src: str, wanted: list[str] | None = None) -> dict[str, str]:
     for anchor in (LINES, WEIGHTS, COPY, KLOOP, MMA3):
         if anchor not in src:
             sys.exit(f"the kernel source changed; update this script's anchor:\n{anchor}")
     no_lines = lambda s: s.replace(LINES, LINES.replace("l < num_lines", "l < 0"))
     no_weights = lambda s: s.replace(WEIGHTS, WEIGHTS.replace("p0 < phi", "p0 < plo"))
     no_copy = lambda s: s.replace(COPY, COPY.replace("i < CHUNK4", "i < 0"))
-    return {
+    out = {
         "full": src,
         "producers_idle": no_weights(no_lines(src)),
         "consumers_idle": no_copy(src.replace(KLOOP, KLOOP.replace("k0 < CHUNK", "k0 < 0"))),
@@ -66,12 +71,18 @@ def variants(src: str) -> dict[str, str]:
         "no_lines": no_lines(src),
         "no_weights": no_weights(src),
     }
+    for name in wanted or ():
+        if name not in out:
+            sys.exit(f"no variant {name}; the variants are {', '.join(out)}")
+    return {name: out[name] for name in wanted} if wanted else out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--source", type=Path, default=SOURCE)
+    ap.add_argument("--variants", default=None, help="comma-separated (default: all)")
     args = ap.parse_args()
 
     import numpy as np
@@ -90,7 +101,7 @@ def main() -> None:
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    print(smi, flush=True)
+    print(f"{smi}; {args.source}", flush=True)
     supported = evidence.supported_k()   # builds the port's own library once
 
     with tempfile.TemporaryDirectory(prefix="evidence_ablation_") as tmp:
@@ -106,7 +117,8 @@ def main() -> None:
             return name, lib
 
         with ThreadPoolExecutor(8) as ex:
-            libs = dict(ex.map(build, variants(SOURCE.read_text()).items()))
+            wanted = args.variants.split(",") if args.variants else None
+            libs = dict(ex.map(build, variants(args.source.read_text(), wanted).items()))
 
         device = torch.device("cuda", 0)
         w, params, samples, *_ = cs.build_workload(0, args.batch)
@@ -115,7 +127,8 @@ def main() -> None:
         S = len(offsets)
         P6 = params.pixel_pad + 2 * params.instrument.width
         window = compute_sample_window(offsets, evidence.SAMPLE_TILE, P6)
-        kin, _ = cs.kernel_inputs(w, params, offsets, nhis, args.batch, device, torch.float32)
+        rl = cs.load_roofline()
+        kin, _ = rl.kernel_inputs(w, params, offsets, nhis, args.batch, device, torch.float32)
         draw_idx, n_draws = replicate_draw_pattern(S, evidence.PATTERN_TILE, 4)
         rng = np.random.default_rng(3)
         cols = torch.as_tensor(

@@ -84,28 +84,28 @@ CLASS_CEILING = {
     "bytes": "read_bandwidth",
 }
 
-# csrc/evidence.cu, per line at one (sample, extended pixel):
-VOIGT_FP32_PER_LINE = 35   # line_profile: x 3 (mul, sub, mul), x^2 1; g_function
-                           # 27 without its division (the 1 + x^2 a mul and add
-                           # 2, 12 Horner steps of a mul and an add over the 13
-                           # coefficients 24, the closing mul 1); the wing 2
-                           # (wing_scale y, times G); the line's sum 2 (times
-                           # lead_norm, subtract)
+# csrc/evidence.cu, per line at one (sample, extended pixel), the
+# multiply-adds fused (__fmaf_rn, one instruction each):
+VOIGT_FP32_PER_LINE = 19   # subtract_line: x 3 (mul, sub, mul: the plain
+                           # version's roundings), x^2 1; g_function 14 without
+                           # its division (1 + x^2 a 1 fma, 12 Horner fmas over
+                           # the 13 coefficients, the closing mul 1); the wing
+                           # into the sum 1 (fma by the line's factor)
 VOIGT_DIV_PER_LINE = 1     # g_function's s = 1 / (1 + x^2 a): div_rn_nobranch
-CORE_FP32_PER_LINE = 7     # exp_core where the core is added: 2 x^2 - 1 (mul,
-                           # sub), y^2 (mul), their product (mul), plus 1 (add),
-                           # min(x^2, 90) (its negation folded), times the exp
-                           # (mul); the add into h
+CORE_FP32_PER_LINE = 5     # exp_core where the core is added: 2 x^2 - 1 (fma),
+                           # 1 + y^2 (...) (fma), min(x^2, 90) (its negation
+                           # folded), times the exp (mul); into the sum (fma)
 CORE_EXP_PER_LINE = 1      # exp_core's expf(-min(x^2, 90))
 RAW_FP32 = 2               # nhi t(z) (mul) and one more (as the published-peak
                            # bounds have always counted it)
 RAW_EXP = 1                # raw = expf(nhi t(z)) at every (sample, extended pixel)
-PAIR_RAW_FP32 = 3          # the pair's nhi2 t(z2): a mul, an add, the base row's read
+PAIR_RAW_FP32 = 2          # the pair's nhi2 t(z2): an fma, the base row's read
 # csrc/evidence.cu, per (sample, output pixel): the 7-tap convolution
-# (taps mul, then 6 mul-adds: 2 halo + 1 with halo = P6 - P), and the
-# weights (18): dd 3, d_safe 2, inv_d 1 division (div_rn_nobranch), yc 2,
-# w 2, u 2, quad 2, the log term 1 mul + 1 logf, the two sums 2
-WEIGHTS_FP32 = 16
+# (taps mul, then 6 fmas: halo + 1 with halo = P6 - P), and the weights
+# (16): dd 2 (mul, fma), d_safe 2, inv_d 1 division (div_rn_nobranch),
+# yc 1 (fma), w 2, u 2, quad 2, the log term 1 mul + 1 logf, the two sums
+# 2 (each U pixels' terms added in pairs, then into the running sum)
+WEIGHTS_FP32 = 14
 WEIGHTS_DIV = 1
 WEIGHTS_LOG = 1
 # Left out, as before: the line multipliers' two __fdiv_rn per (sample,
@@ -132,7 +132,7 @@ def evidence_work(B, S, P, P6, k, num_lines, window, pair, distinct_base) -> dic
     w["fp32"] = el6 * (L * (VOIGT_FP32_PER_LINE + CORE_FP32_PER_LINE * core) + RAW_FP32)
     w["fdiv_nobranch"] = el6 * L * VOIGT_DIV_PER_LINE
     w["expf"] = el6 * (L * CORE_EXP_PER_LINE * core + RAW_EXP)
-    w["fp32"] += el * ((2 * halo + 1) + WEIGHTS_FP32)
+    w["fp32"] += el * ((halo + 1) + WEIGHTS_FP32)
     w["fdiv_nobranch"] += el * WEIGHTS_DIV
     w["logf"] = el * WEIGHTS_LOG
     if pair:

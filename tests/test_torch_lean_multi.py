@@ -360,6 +360,21 @@ def test_fingerprint_separates_backends_and_replicates(problem):
     assert len({fp("torch"), fp("cuda"), fp("torch", ([4.0],))}) == 3
 
 
+def test_fingerprint_refuses_checkpoints_of_the_unfused_kernels(problem, monkeypatch):
+    """The evidence kernels fuse their multiply-adds since numerics v3, so
+    a manifest written under v2 is not trusted on resume."""
+    from gp_dla_detection_tpu_torch.parallel import sharded_inference
+
+    params, jmodel, spectra, offsets, nhis, *_ = problem
+    fields = {f.name: getattr(jmodel, f.name) for f in dataclasses.fields(jmodel)}
+    model = GPModel.from_numpy(**fields, device="cpu", dtype=torch.float64)
+    fp = lambda: run_fingerprint(torch.float32, "cuda", params, model, offsets, nhis)
+    assert sharded_inference.PORT_TOKEN.endswith("|numerics:v3")
+    now = fp()
+    monkeypatch.setattr(sharded_inference, "PORT_TOKEN", "gp_dla_detection_tpu_torch|numerics:v2")
+    assert fp() != now
+
+
 def test_lean_cuda_backend_refuses_cpu_and_float64(problem, prior_num):
     assert FUSED_LEAN_BASE_REPLICATES == 4
     for dtype in (torch.float32, torch.float64):

@@ -19,20 +19,23 @@ torch.set_num_threads(1)
 RL = port_script("torch_roofline")
 
 # chip_smoke.py's bounds before they moved here (evidence_bound,
-# redraw_bound, cddf_bound, null_bound of the parent commit) at the shapes
-# of its phases 3 and 5 (B = 128; windowed at 120 px, and 31 lines on
-# the full grid; the pair at 2,512 distinct base draws) and 10 (B = 1024)
+# redraw_bound, cddf_bound, null_bound) at the shapes of its phases 3 and
+# 5 (B = 128; windowed at 120 px, and 31 lines on the full grid; the pair
+# at 2,512 distinct base draws) and 10 (B = 1024); the evidence rows at the
+# kernels' fused multiply-adds (with two roundings each they were 7.048,
+# 68.366, 8.816, 85.270, 56.382 and 70.530 ms, all FP32 pipe)
 FORMER_BOUNDS = [
-    ("evidence", (128, 10000, 1274, 1280, 20, 3, 120, False, 0), 7.047794626865672, "FP32 pipe"),
-    ("evidence", (128, 10000, 1274, 1280, 20, 31, None, False, 0), 68.36552597014925,
+    ("evidence", (128, 10000, 1274, 1280, 20, 3, 120, False, 0), 4.546249696969697,
+     "TF32 tensor cores (3xTF32)"),
+    ("evidence", (128, 10000, 1274, 1280, 20, 31, None, False, 0), 40.68573611940299,
      "FP32 pipe"),
-    ("evidence", (128, 10000, 1274, 1280, 20, 3, 120, True, 2512), 8.816210225671643,
+    ("evidence", (128, 10000, 1274, 1280, 20, 3, 120, True, 2512), 5.339388484776119,
      "FP32 pipe"),
-    ("evidence", (128, 10000, 1274, 1280, 20, 31, None, True, 2512), 85.26974486925373,
+    ("evidence", (128, 10000, 1274, 1280, 20, 31, None, True, 2512), 50.68570807402985,
      "FP32 pipe"),
-    ("evidence", (1024, 10000, 1274, 1280, 20, 3, 120, False, 0), 56.382357014925375,
-     "FP32 pipe"),
-    ("evidence", (1024, 10000, 1274, 1280, 20, 3, 120, True, 2512), 70.52968180537314,
+    ("evidence", (1024, 10000, 1274, 1280, 20, 3, 120, False, 0), 36.36999757575757,
+     "TF32 tensor cores (3xTF32)"),
+    ("evidence", (1024, 10000, 1274, 1280, 20, 3, 120, True, 2512), 42.715107878208954,
      "FP32 pipe"),
     ("redraw", (128, 10000, 2512), 0.0023022041791044773, "bytes"),
     ("redraw", (1024, 10000, 2512), 0.018375641791044776, "bytes"),
@@ -41,7 +44,7 @@ FORMER_BOUNDS = [
     ("null", (128, 1274, 20), 0.004527226268656716, "bytes"),
     ("null", (1024, 1274, 20), 0.03621781014925373, "bytes"),
 ]
-FORMER_PIPES_B128 = {"bytes": 0.009648678208955225, "FP32 pipe": 7.047794626865672,
+FORMER_PIPES_B128 = {"bytes": 0.009648678208955225, "FP32 pipe": 4.283300298507463,
                      "TF32 tensor cores (3xTF32)": 4.546249696969697}
 
 
@@ -75,10 +78,12 @@ def test_published_pipes_and_classes_sum_to_the_former_count():
     assert pipes.keys() == FORMER_PIPES_B128.keys()
     for pipe, ms in FORMER_PIPES_B128.items():
         assert pipes[pipe] == pytest.approx(ms, rel=1e-12)
-    # each FP32-pipe class is one operation of the former single count
+    # each FP32-pipe class is one operation of the single count: per line
+    # the wing 19 + its division, the core 5 + its exp; the raw 2 + its
+    # exp; the convolution 7 and the weights 14 + a division and a log
     work = RL["evidence_work"](1, 1, 1274, 1280, 20, 3, None, False, 0)
     fp32_pipe = sum(work[c] for c in ("fp32", "expf", "logf", "fdiv_rn", "fdiv_nobranch"))
-    assert fp32_pipe == 1280 * (3 * (36 + 8) + 3) + 1274 * (13 + 18)
+    assert fp32_pipe == 1280 * (3 * (20 + 6) + 3) + 1274 * (7 + 16)
 
 
 def test_chip_smoke_keeps_no_copy_of_the_bounds():
