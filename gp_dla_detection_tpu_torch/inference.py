@@ -55,6 +55,7 @@ __all__ = [
     "correct_prior_dla_flags",
     "compute_sample_window",
     "kernel_sample_window",
+    "kernel_span_ids",
     "spectrum_log_likelihoods",
     "batch_log_likelihoods",
     "finalize_posteriors",
@@ -215,6 +216,13 @@ def kernel_sample_window(offset_samples, num_pixels: int, params: Parameters):
         offset_samples, evidence.SAMPLE_TILE, num_pixels + 2 * params.instrument.width,
         num_lines=params.num_lines, pixel_spacing=params.instrument.pixel_spacing,
     )
+
+
+def kernel_span_ids(params: Parameters, window) -> dict:
+    """The evidence stages' span ids (``utils/observability.trace``): the
+    Lyman lines and the kernel's sample window in pixels, 0 for the full
+    grid."""
+    return {"lines": params.num_lines, "window": window or 0}
 
 
 def _prepare_spectrum(

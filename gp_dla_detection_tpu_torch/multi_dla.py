@@ -36,6 +36,7 @@ from .inference import (
     PaddedSpectra,
     _prepare_spectrum,
     kernel_sample_window,
+    kernel_span_ids,
     process_spectra,
 )
 from .models.qso_model import GPModel
@@ -632,6 +633,7 @@ def process_spectra_multi(
         # z-sort the fresh axis; the base columns travel with their pairs
         order = np.argsort(offsets, kind="stable")
         window = kernel_sample_window(offsets, spectra.wavelengths.shape[1], params)
+    kernel_ids = kernel_span_ids(params, window)
     # the pair columns this rank evaluates (original sample indices): a
     # z-sorted block on a sample axis, else all of them in the layout
     split = sample_blocks(offsets, mesh)
@@ -698,7 +700,7 @@ def process_spectra_multi(
     def issue(item, up):
         # the pair evaluation, enqueued; on a sample axis the rows'
         # gather (a collective, so here in program order)
-        with trace("gpdla.stage.pair"):
+        with trace("gpdla.stage.pair", **kernel_ids):
             *spec, base_off, base_nhi = transfers.take(up)
             lls = batch_dla2_log_likelihoods(
                 *spec, *model_args, base_off, base_nhi, params=params, min_sep_z=min_sep_z,

@@ -16,7 +16,9 @@ configuration, a pair of absorbers whose optical depths add.
   versions, any dtype, any device, looping over sample chunks so that no
   (S, P6) array is materialised whole.
 - ``launch_count`` / ``pair_launch_count`` count the kernel launches
-  made by each wrapper.
+  made by each wrapper, and ``full_grid_launch_count`` /
+  ``full_grid_pair_launch_count`` those of them made with ``window``
+  None (the profile and its Gaussian core at every pixel of every line).
 - :func:`check_base_layout` is the pair wrapper's check of the
   ``base_replicates`` layout it hands the kernel.
 """
@@ -46,6 +48,8 @@ __all__ = [
     "KERNEL_TILE",
     "PATTERN_TILE",
     "check_base_layout",
+    "full_grid_launch_count",
+    "full_grid_pair_launch_count",
     "kernel_constants",
     "launch_count",
     "pair_launch_count",
@@ -70,6 +74,8 @@ MAX_LINES = 31
 
 launch_count = 0        # single-absorber kernel launches
 pair_launch_count = 0   # two-DLA pair kernel launches
+full_grid_launch_count = 0       # of launch_count, those with window None
+full_grid_pair_launch_count = 0  # of pair_launch_count, those with window None
 
 
 def kernel_constants(num_lines: int, instrument: InstrumentParams) -> dict:
@@ -326,8 +332,9 @@ def sample_log_likelihoods(
         "gpdla_evidence_single_f32", ext_wavelengths, flux, mu, M, omega2,
         noise_variance, mask, (z_dlas, nhi), num_lines, instrument, window,
     )
-    global launch_count
+    global launch_count, full_grid_launch_count
     launch_count += 1
+    full_grid_launch_count += int(window is None)
     return out
 
 
@@ -380,8 +387,9 @@ def sample_log_likelihoods_pair(
         noise_variance, mask, (z_dlas, nhi, z_dlas2, nhi2), num_lines,
         instrument, window, base_replicates,
     )
-    global pair_launch_count
+    global pair_launch_count, full_grid_pair_launch_count
     pair_launch_count += 1
+    full_grid_pair_launch_count += int(window is None)
     return out
 
 

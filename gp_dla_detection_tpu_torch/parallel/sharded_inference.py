@@ -47,6 +47,7 @@ from ..inference import (
     dla_rate_priors,
     finalize_posteriors,
     kernel_sample_window,
+    kernel_span_ids,
     posteriors_from_evidence,
 )
 from ..models.qso_model import GPModel
@@ -379,6 +380,7 @@ def process_spectra_sharded(
         window = kernel_sample_window(offsets, spectra.wavelengths.shape[1], params)
         if window is not None:
             order = np.argsort(offsets, kind="stable")
+    kernel_ids = kernel_span_ids(params, window)
     split = sample_blocks(offsets, mesh)
     block, columns = split if split is not None else (order, order)
     on_device = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)
@@ -449,7 +451,7 @@ def process_spectra_sharded(
     def issue(item, up):
         # the batch's work, enqueued; on a sample axis the rows' gather
         # (a collective, so here in program order)
-        with trace("gpdla.stage.single"):
+        with trace("gpdla.stage.single", **kernel_ids):
             out = batch_log_likelihoods(
                 *transfers.take(up), *model_args, params=params,
                 sample_chunk=config.sample_chunk, backend=backend, sample_window=window,

@@ -85,6 +85,7 @@ from ..inference import (
     batch_log_likelihoods,
     dla_rate_priors,
     kernel_sample_window,
+    kernel_span_ids,
     posteriors_from_evidence,
 )
 from ..models.qso_model import GPModel
@@ -269,6 +270,7 @@ def process_spectra_multi_lean(
     window = None
     if use_cuda:
         window = kernel_sample_window(offsets, spectra.wavelengths.shape[1], params)
+    kernel_ids = kernel_span_ids(params, window)
     # the pair stage runs on the z-sorted fresh axis under "cuda" (the
     # kernel's window needs it); the single stage sorts and un-sorts
     # itself, so its columns stay in original order for the redraw
@@ -402,7 +404,7 @@ def process_spectra_multi_lean(
         # gathers are collectives, so here in program order
         uploaded = transfers.take(up)
         spec, priors = uploaded[:5], uploaded[5:]
-        with trace("gpdla.stage.single"):
+        with trace("gpdla.stage.single", **kernel_ids):
             out1 = batch_log_likelihoods(
                 *spec, *model_args, off_orig, nh_orig, params=params,
                 sample_chunk=sample_chunk, backend=backend, sample_window=window,
@@ -417,7 +419,7 @@ def process_spectra_multi_lean(
             vals = base_tables[base_cols]                    # (B, S, 2)
             if block is not None:
                 vals = vals[:, block].contiguous()
-        with trace("gpdla.stage.pair"):
+        with trace("gpdla.stage.pair", **kernel_ids):
             lls2 = whole_rows(batch_dla2_log_likelihoods(
                 *spec, *model_args, off_pair, nh_pair, vals[..., 0], vals[..., 1],
                 params=params, min_sep_z=min_sep_z, backend=backend,

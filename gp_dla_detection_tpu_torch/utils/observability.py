@@ -33,7 +33,9 @@ with ``call`` (a count of driver calls) and ``batch`` in their ids:
 the loop's start), ``gpdla.loop.wait_upload`` (the calling thread
 blocked on the upload thread), ``gpdla.batch.issue`` (its stages
 ``gpdla.stage.single``, ``.redraw``, ``.pair``, ``.cddf`` and ``.fetch``,
-the enqueue of the copies to the host), ``gpdla.batch.complete``
+the enqueue of the copies to the host; the evidence stages ``.single``
+and ``.pair`` also carry ``lines``, the Lyman lines, and ``window``, the
+kernel's sample window in pixels, 0 for the full grid), ``gpdla.batch.complete``
 (``gpdla.batch.wait``, the host blocked on the card, and
 ``gpdla.batch.checkpoint``, the hand-off to the writer),
 ``gpdla.call.drain`` (the checkpoint writer's exit) and

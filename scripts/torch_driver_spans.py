@@ -1,5 +1,6 @@
 """One traced run of a benchmark cell with the program's span recorder
-on: the device's idle time and device time by driver span.
+on: the device's idle time and device time by driver span, and the
+evidence kernels' launches and paths.
 
     python3 scripts/torch_driver_spans.py --workload <cell> --seed <n> [--seconds 30]
         [--out runs/spans_<cell>.json]
@@ -9,9 +10,13 @@ under ``torch.profiler``), records the spans of every call made while the
 profiler is on, keeps the profiler's trace that the harness reduces,
 and puts the spans against it (``gpbench/spans.py``).  The last line of
 standard output is one JSON object: the cell, the seed, the card, the
-harness's result (its per-layer metrics and ``breakdown``) and
+harness's result (its per-layer metrics and ``breakdown``),
 ``spans``: the alignment, idle and device time by span, and the drivers'
-quantities.  Needs the card the cell asks for.
+quantities; ``stages``: each ``gpdla.stage.*`` span's device time with
+the ``lines`` and ``window`` ids it carried (the evidence stages; window
+0 is the full grid); and ``launches``: the evidence kernels' launch
+counters over the profiled calls, the full-grid ones among them.  Needs
+the card the cell asks for.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ import time
 from pathlib import Path
 
 T_PROCESS = time.perf_counter()
+# the evidence kernels' launch counters (ops/evidence.py)
+COUNTERS = ("launch_count", "pair_launch_count", "full_grid_launch_count",
+            "full_grid_pair_launch_count")
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
@@ -32,11 +40,13 @@ def traced_run(workload: str, seed: int, seconds: float, **harness_kw) -> dict:
     the profiled window; ``harness_kw`` go to ``gpbench.harness.run``."""
     import torch.autograd.profiler as torch_profiler
 
+    from gp_dla_detection_tpu_torch.ops import evidence
     from gp_dla_detection_tpu_torch.utils import observability
     from gpbench import harness, spans
     from gpbench import trace as tr
 
     recorded, raw = [], []
+    launches = dict.fromkeys(COUNTERS, 0)
     load_events = tr.load_events
 
     def keep_raw(path):
@@ -48,11 +58,14 @@ def traced_run(workload: str, seed: int, seconds: float, **harness_kw) -> dict:
         def recorded_call(*args):
             if not torch_profiler._is_profiler_enabled:
                 return call(*args)
+            before = {c: getattr(evidence, c) for c in COUNTERS}
             with observability.recording() as rec:
                 try:
                     return call(*args)
                 finally:
                     recorded.extend(rec.drain())
+                    for c in COUNTERS:
+                        launches[c] += getattr(evidence, c) - before[c]
         return recorded_call
 
     tr.load_events = keep_raw
@@ -63,7 +76,25 @@ def traced_run(workload: str, seed: int, seconds: float, **harness_kw) -> dict:
         tr.load_events = load_events
     result["checks"] = {c["name"]: {"value": c["value"], "limit": c["limit"]} for c in checks}
     result["spans"] = spans.reduce(raw, [tuple(s) for s in recorded])
+    result["stages"] = stages(recorded, result["spans"]["device_by_span"])
+    result["launches"] = launches
     return {"workload": workload, "seed": seed, **result}
+
+
+def stages(recorded, device_by_span) -> dict:
+    """Each stage span's device time (s) and the ``lines`` and ``window``
+    ids its spans carried."""
+    device = dict(device_by_span)
+    out = {}
+    for s in recorded:
+        if s.name.startswith("gpdla.stage."):
+            st = out.setdefault(s.name, {"device_s": device.get(s.name, 0.0),
+                                         "lines": set(), "window": set()})
+            for key in ("lines", "window"):
+                if key in s.ids:
+                    st[key].add(s.ids[key])
+    return {name: {**st, "lines": sorted(st["lines"]), "window": sorted(st["window"])}
+            for name, st in out.items()}
 
 
 def main(argv=None) -> int:

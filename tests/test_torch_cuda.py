@@ -764,6 +764,117 @@ def test_fused_chain_issue_waits_for_nothing_with_its_spans_on(device, monkeypat
         assert names.count(f"gpdla.stage.{stage}") == n, stage
 
 
+F64_BOUND = 5e-4          # float32 chain vs the float64 plain path (chip_smoke.py)
+DECISION_MARGIN = 0.01    # no 3-class flip where float64's winner holds 0.9 + this
+PAIR_RTOL, PAIR_ATOL = 5e-4, 5e-3
+
+
+def lines31_problem(device, n, samples):
+    """``n`` sightlines of the benchmark's 31-line cell (``gpbench``'s
+    generator on the card, the configuration's widths, ``samples`` QMC
+    samples): (run, gpbench.program)."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from gpbench import harness, program
+
+    cell = harness.sized_cell(harness.load_cell("multi31_b1024"), pool_size=n, samples=samples)
+    r = harness.Run(cell, 2147483777, 0.0, False, device, None)
+    harness.make_inputs(r)
+    r.params = program.parameters(cell.cfg)
+    return r, program
+
+
+def lines31_chain(r, program, batch, dtype="float32", backend=None, replicates=None,
+                  num_lines=31):
+    """The fused lean chain with CDDF inputs on the whole pool:
+    (fields, counters' increments)."""
+    import dataclasses
+
+    import torch_distributed_worker as worker
+    from gp_dla_detection_tpu_torch.parallel import ShardedRunConfig
+
+    counters = ("launch_count", "pair_launch_count", "full_grid_launch_count",
+                "full_grid_pair_launch_count")
+    before = [getattr(evidence, c) for c in counters]
+    res = program.process_multi(
+        program.gp_model(r.model, r.device, getattr(torch, dtype)), r.samples[0], r.samples[1],
+        program.spectra(r.pool, np.arange(len(r.pool["z_qso"]))), r.catalogue[0],
+        r.catalogue[1], params=dataclasses.replace(r.params, num_lines=num_lines),
+        config=ShardedRunConfig(per_device_batch=batch, dtype=dtype, backend=backend,
+                                store_sample_likelihoods=False, store_cddf_inputs=True,
+                                base_replicates=replicates, device=str(r.device)),
+    )
+    fields = worker.multi_fields(res)
+    fields.update(cddf_hist=res.cddf_inputs.hist, cddf_ex=res.cddf_inputs.ex)
+    return fields, {c: getattr(evidence, c) - b for c, b in zip(counters, before)}
+
+
+def test_chain_at_31_lines_does_not_depend_on_the_batch_and_runs_the_full_grid(device):
+    """The chain at 31 lines (both kernels on the full grid, R = 4, CDDF
+    inputs) at B = 128 and 256: the same bits, one full-grid launch of
+    each kernel a batch, the evidence stages' spans at ``lines`` 31 and
+    ``window`` 0; at 3 lines no full-grid launch, the spans at the
+    driver's window."""
+    import dataclasses
+
+    from gp_dla_detection_tpu_torch.inference import kernel_sample_window
+    from gp_dla_detection_tpu_torch.utils import observability
+
+    r, program = lines31_problem(device, 512, 10_000)
+
+    def stage_ids(rec):
+        return {(s.name, s.ids["lines"], s.ids["window"]) for s in rec.drain()
+                if s.name in ("gpdla.stage.single", "gpdla.stage.pair")}
+
+    runs = {}
+    for batch in (128, 256):
+        with observability.recording() as rec:
+            runs[batch], counts = lines31_chain(r, program, batch)
+        n = 512 // batch
+        assert counts == {"launch_count": n, "pair_launch_count": n,
+                          "full_grid_launch_count": n, "full_grid_pair_launch_count": n}
+        assert stage_ids(rec) == {("gpdla.stage.single", 31, 0), ("gpdla.stage.pair", 31, 0)}
+    for k in ("log_likelihoods_no_dla", "log_likelihoods_dla", "p_dlas", "log_likelihoods_dla2",
+              "model_posteriors"):
+        assert np.isfinite(runs[128][k]).all(), k
+    for k, v in runs[128].items():
+        np.testing.assert_array_equal(runs[256][k], v, err_msg=k)
+    with observability.recording() as rec:
+        _, counts = lines31_chain(r, program, 256, num_lines=3)
+    assert counts == {"launch_count": 2, "pair_launch_count": 2, "full_grid_launch_count": 0,
+                      "full_grid_pair_launch_count": 0}
+    window = kernel_sample_window(r.samples[0], r.pool["wavelengths"].shape[1],
+                                  dataclasses.replace(r.params, num_lines=3))
+    assert window > 0
+    assert stage_ids(rec) == {("gpdla.stage.single", 3, window), ("gpdla.stage.pair", 3, window)}
+
+
+def test_chain_at_31_lines_is_within_the_float32_gates_of_the_float64_plain_path(device):
+    """The chain at 31 lines on the card (float32, the kernels, R = 1)
+    against the float64 plain path on the card: the evidences within
+    F64_BOUND normalized, no confident 3-class decision flipped, the pair
+    evidences within the pair gate (chip_smoke.py phase 6)."""
+    r, program = lines31_problem(device, 8, 2000)
+    f32, _ = lines31_chain(r, program, 8, replicates=1)
+    f64, counts = lines31_chain(r, program, 8, dtype="float64", backend="torch")
+    assert counts["launch_count"] == 0
+    for k in ("log_likelihoods_no_dla", "log_likelihoods_dla"):
+        err = np.abs(f32[k] - f64[k]) / np.maximum(np.abs(f64[k]), 1.0)
+        assert err.max() < F64_BOUND, (k, err.max())
+    post32, post64 = f32["model_posteriors"], f64["model_posteriors"]
+    win64 = np.argmax(post64, axis=1)
+    sure = post64[np.arange(len(win64)), win64] > 0.9 + DECISION_MARGIN
+    assert not (sure & (np.argmax(post32, axis=1) != win64)).any()
+    a, b = f32["log_likelihoods_dla2"], f64["log_likelihoods_dla2"]
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    fin = np.isfinite(b)
+    assert (np.abs(a[fin] - b[fin]) <= PAIR_ATOL + PAIR_RTOL * np.abs(b[fin])).all()
+
+
 def null_inputs(device, B=64, P=1274, k=20, seed=0):
     rng = np.random.default_rng(seed)
     mask = rng.uniform(size=(B, P)) > 0.1
