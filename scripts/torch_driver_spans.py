@@ -15,8 +15,9 @@ harness's result (its per-layer metrics and ``breakdown``),
 quantities; ``stages``: each ``gpdla.stage.*`` span's device time with
 the ``lines`` and ``window`` ids it carried (the evidence stages; window
 0 is the full grid); and ``launches``: the evidence kernels' launch
-counters over the profiled calls, the full-grid ones among them.  Needs
-the card the cell asks for.
+counters over the profiled calls, the full-grid ones among them, and the
+drivers' evidence reductions on the card (``evidence_reduce_count``, one
+a batch).  Needs the card the cell asks for.
 """
 
 from __future__ import annotations
@@ -41,12 +42,15 @@ def traced_run(workload: str, seed: int, seconds: float, **harness_kw) -> dict:
     import torch.autograd.profiler as torch_profiler
 
     from gp_dla_detection_tpu_torch.ops import evidence
+    from gp_dla_detection_tpu_torch.parallel import streaming
     from gp_dla_detection_tpu_torch.utils import observability
     from gpbench import harness, spans
     from gpbench import trace as tr
 
     recorded, raw = [], []
-    launches = dict.fromkeys(COUNTERS, 0)
+    counts = lambda: {**{c: getattr(evidence, c) for c in COUNTERS},
+                      "evidence_reduce_count": streaming.evidence_reduce_count}
+    launches = dict.fromkeys(counts(), 0)
     load_events = tr.load_events
 
     def keep_raw(path):
@@ -58,14 +62,14 @@ def traced_run(workload: str, seed: int, seconds: float, **harness_kw) -> dict:
         def recorded_call(*args):
             if not torch_profiler._is_profiler_enabled:
                 return call(*args)
-            before = {c: getattr(evidence, c) for c in COUNTERS}
+            before = counts()
             with observability.recording() as rec:
                 try:
                     return call(*args)
                 finally:
                     recorded.extend(rec.drain())
-                    for c in COUNTERS:
-                        launches[c] += getattr(evidence, c) - before[c]
+                    for c, n in counts().items():
+                        launches[c] += n - before[c]
         return recorded_call
 
     tr.load_events = keep_raw

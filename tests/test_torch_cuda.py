@@ -6,7 +6,8 @@ golden fixture through the float64 plain path on the card, the float32
 plain path's independence of where a column's block sits, and the fused
 chain's fixed-order kernels (the redraw, the CDDF sums, the null
 evidence) against their plain versions, row by row independent of the
-batch, and the chain with them the same bits at every batch size.
+batch, and the chain with them the same bits at every batch size; the
+single driver's full mode reducing and reordering its rows on the card.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); without a card they
 skip.  The file imports no jax, so on a machine without jax run it
@@ -773,6 +774,12 @@ def lines31_problem(device, n, samples):
     """``n`` sightlines of the benchmark's 31-line cell (``gpbench``'s
     generator on the card, the configuration's widths, ``samples`` QMC
     samples): (run, gpbench.program)."""
+    return cell_problem(device, "multi31_b1024", n, samples)
+
+
+def cell_problem(device, name, n, samples):
+    """``n`` sightlines of the benchmark's cell ``name``, as
+    :func:`lines31_problem`."""
     import sys
     from pathlib import Path
 
@@ -781,7 +788,7 @@ def lines31_problem(device, n, samples):
         sys.path.insert(0, root)
     from gpbench import harness, program
 
-    cell = harness.sized_cell(harness.load_cell("multi31_b1024"), pool_size=n, samples=samples)
+    cell = harness.sized_cell(harness.load_cell(name), pool_size=n, samples=samples)
     r = harness.Run(cell, 2147483777, 0.0, False, device, None)
     harness.make_inputs(r)
     r.params = program.parameters(cell.cfg)
@@ -873,6 +880,59 @@ def test_chain_at_31_lines_is_within_the_float32_gates_of_the_float64_plain_path
     np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
     fin = np.isfinite(b)
     assert (np.abs(a[fin] - b[fin]) <= PAIR_ATOL + PAIR_RTOL * np.abs(b[fin])).all()
+
+
+def test_full_mode_reduces_and_reorders_on_the_card(device, monkeypatch):
+    """The single driver's full mode at B = 128 on 512 sightlines of the
+    benchmark's 3-line cell (10,000 samples, the windowed kernel): the
+    rows it returns are the host reorder of the kernel's rows bit for
+    bit; the evidence is the lean mode's bit for bit and within float32
+    rounding of the host's reduction of the rows
+    (``finalize_posteriors``); one evidence reduction and one kernel
+    launch a batch in each mode."""
+    from gp_dla_detection_tpu_torch.inference import finalize_posteriors, kernel_sample_window
+    from gp_dla_detection_tpu_torch.parallel import ShardedRunConfig, sharded_inference, streaming
+
+    r, program = cell_problem(device, "single_b1024", 512, 10_000)
+    offsets = np.asarray(r.samples[0])
+    assert kernel_sample_window(offsets, r.pool["wavelengths"].shape[1], r.params)
+    kernel_rows = []
+    real = sharded_inference.batch_log_likelihoods
+
+    def recorded(*args, **kw):
+        out = real(*args, **kw)
+        kernel_rows.append(out["sample_log_likelihoods_dla"].cpu())
+        return out
+
+    monkeypatch.setattr(sharded_inference, "batch_log_likelihoods", recorded)
+    model = program.gp_model(r.model, r.device, torch.float32)
+
+    def run(lean):
+        kernel_rows.clear()
+        before = (streaming.evidence_reduce_count, evidence.launch_count)
+        res = program.process_single(
+            model, r.samples[0], r.samples[1], program.spectra(r.pool, np.arange(512)),
+            r.catalogue[0], r.catalogue[1] >= 1, params=r.params,
+            config=ShardedRunConfig(per_device_batch=128, store_sample_likelihoods=not lean,
+                                    device=str(r.device)),
+        )
+        assert (streaming.evidence_reduce_count - before[0],
+                evidence.launch_count - before[1]) == (4, 4)
+        return res
+
+    full = run(lean=False)
+    order = np.argsort(offsets, kind="stable")
+    host = np.concatenate([sharded_inference.in_sample_order(x.numpy(), order)
+                           for x in kernel_rows])
+    assert host.dtype == np.float32 and np.isfinite(host).all()
+    np.testing.assert_array_equal(full.sample_log_likelihoods_dla, host)
+    lean = run(lean=True)
+    for k in ("log_likelihoods_dla", "p_dlas", "log_likelihoods_no_dla"):
+        np.testing.assert_array_equal(getattr(full, k), getattr(lean, k), err_msg=k)
+    on_host = finalize_posteriors(full.log_priors_no_dla, full.log_priors_dla,
+                                  full.log_likelihoods_no_dla, host)["log_likelihoods_dla"]
+    eps = np.finfo(np.float32).eps
+    np.testing.assert_allclose(full.log_likelihoods_dla, on_host, rtol=4 * eps, atol=4 * eps)
 
 
 def null_inputs(device, B=64, P=1274, k=20, seed=0):

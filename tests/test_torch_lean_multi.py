@@ -361,18 +361,21 @@ def test_fingerprint_separates_backends_and_replicates(problem):
 
 
 def test_fingerprint_refuses_checkpoints_of_the_unfused_kernels(problem, monkeypatch):
-    """The evidence kernels fuse their multiply-adds since numerics v3, so
-    a manifest written under v2 is not trusted on resume."""
+    """The evidence kernels fuse their multiply-adds since numerics v3 and
+    the full mode reduces its evidence on the device since v4, so a
+    manifest written under v2 or v3 is not trusted on resume."""
     from gp_dla_detection_tpu_torch.parallel import sharded_inference
 
     params, jmodel, spectra, offsets, nhis, *_ = problem
     fields = {f.name: getattr(jmodel, f.name) for f in dataclasses.fields(jmodel)}
     model = GPModel.from_numpy(**fields, device="cpu", dtype=torch.float64)
     fp = lambda: run_fingerprint(torch.float32, "cuda", params, model, offsets, nhis)
-    assert sharded_inference.PORT_TOKEN.endswith("|numerics:v3")
+    assert sharded_inference.PORT_TOKEN.endswith("|numerics:v4")
     now = fp()
-    monkeypatch.setattr(sharded_inference, "PORT_TOKEN", "gp_dla_detection_tpu_torch|numerics:v2")
-    assert fp() != now
+    for old in ("v2", "v3"):
+        monkeypatch.setattr(sharded_inference, "PORT_TOKEN",
+                            f"gp_dla_detection_tpu_torch|numerics:{old}")
+        assert fp() != now
 
 
 def test_lean_cuda_backend_refuses_cpu_and_float64(problem, prior_num):

@@ -67,6 +67,7 @@ from gp_dla_detection_tpu_torch.parallel.sharded_multi import (
     process_spectra_multi_lean,
     process_spectra_multi_sharded,
 )
+from gp_dla_detection_tpu_torch.parallel.streaming import row_evidence
 
 import torch_distributed_worker as worker
 from synthetic_problem import make_problem
@@ -237,6 +238,20 @@ def test_sample_axis_matches_one_process(ranks, one, mode):
         np.testing.assert_allclose(ours["log_likelihoods_dla"], ref["log_likelihoods_dla"],
                                    rtol=1e-10)
     np.testing.assert_allclose(ours["p_dlas"], ref["p_dlas"], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("axis", ["data", "sample"])
+def test_full_mode_evidence_is_the_one_device_reduction_of_its_rows(ranks, axis):
+    """The full mode's evidence on either axis: the lean mode's bit for
+    bit, and the one-device reduction (``streaming.row_evidence``) of the
+    whole rows it returns; on the sample axis the rows are gathered on the
+    host and the evidence reduced from them on the device."""
+    name = {"data": "single", "sample": "sample"}[axis]
+    full, lean = ranks(f"{name}_full"), ranks(f"{name}_lean")
+    for k in ("log_likelihoods_dla", "p_dlas", "model_posteriors"):
+        np.testing.assert_array_equal(full[k], lean[k], err_msg=k)
+    rows = torch.as_tensor(full["sample_log_likelihoods_dla"])
+    np.testing.assert_array_equal(full["log_likelihoods_dla"], row_evidence(rows).numpy())
 
 
 @pytest.mark.parametrize("sample_parallelism", [1, 2], ids=["data", "sample"])
