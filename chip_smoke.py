@@ -41,9 +41,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    receives, finite evidences, posteriors that sum to 1, NaN pair
    evidence only where a row has no valid pair; the process's first
    pipelined run under ``torch.profiler``, then the main run at the
-   pipelined loop's defaults (4 batches in flight, uploads on a side
-   thread), then depths 1, 2 and 4 with and without the upload thread in
-   turns, every run bit-identical to it, and one run with every ``issue``
+   pipelined loop's defaults (4 batches in flight), then depths 1, 2
+   and 4 in turns, every run bit-identical to it, and one run with every ``issue``
    under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), and
    ``torch.profiler`` splits of warm runs at the default and at depth 1
    (kernels, other device ops, device idle, the host's wait) beside the
@@ -1236,7 +1235,7 @@ def rank_worker(rank, world, addr, backend, inputs_path, params, training_params
 
     from gp_dla_detection_tpu_torch.models.training import learn_gp_model
     from gp_dla_detection_tpu_torch.ops import evidence
-    from gp_dla_detection_tpu_torch.parallel import sharded_inference
+    from gp_dla_detection_tpu_torch.parallel import batches
     from gp_dla_detection_tpu_torch.parallel.mesh import (
         broadcast_object,
         fetch_global,
@@ -1251,13 +1250,13 @@ def rank_worker(rank, world, addr, backend, inputs_path, params, training_params
     from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi_lean
 
     writes = [0]
-    savez = sharded_inference.atomic_savez
+    savez = batches.atomic_savez
 
     def counted(*a, **kw):
         writes[0] += 1
         return savez(*a, **kw)
 
-    sharded_inference.atomic_savez = counted
+    batches.atomic_savez = counted
     initialize_distributed(addr, world, rank, backend=backend)
     try:
         inputs, training = load_inputs(inputs_path)
@@ -1428,8 +1427,8 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
                 f"{k} {sum(m[k] for m in stages[name, d]) / len(stages[name, d]):.4f}"
                 for k in stages[name, d][0] if k != "batches")
             say(f"phase 8: {name} in one process on {len(spectra)} spectra (batch {RANK_BATCH}), "
-                f"wall s, in turns: depth 1 {secs(ref_seconds[name])}, the default (depth 4, "
-                f"upload thread) {secs(pipelined_seconds[name])}, bit-identical"
+                f"wall s, in turns: depth 1 {secs(ref_seconds[name])}, the default (depth 4) "
+                f"{secs(pipelined_seconds[name])}, bit-identical"
                 + (" (the CDDF inputs included)" if name == "chain" else "")
                 + f"; per-batch stage s (GPDLA_DRIVER_TIMING=1, {stages[name, 'serial'][0]['batches']} "
                 f"batch lines a run): depth 1 {mean('serial')}; the default {mean('default')} ({smi})")
@@ -1588,15 +1587,17 @@ def ranks_phase(smi: str, w: dict, chain, release: dict) -> dict:
     return {"wall": wall, "device_lbfgs_syncs_per_eval": d_syncs / d.fun_evals}
 
 
-SERIAL = {"pipeline_depth": 1, "dispatch_thread": False}   # the serial loop
+SERIAL = {"pipeline_depth": 1}   # the serial loop
 
 
 @contextlib.contextmanager
-def strict_issue(module):
-    """``module``'s drivers with every ``issue`` of the pipelined loop run
+def strict_issue():
+    """The drivers with every ``issue`` of the pipelined loop run
     under ``torch.cuda.set_sync_debug_mode("error")``: a host sync there
     (a read of a device value, a copy from pageable memory) raises."""
     import torch
+
+    from gp_dla_detection_tpu_torch.parallel import batches as module
 
     real = module.run_pipelined_split
 
@@ -1703,8 +1704,8 @@ def profile_split(fn, window: str = "gpdla_profiled"):
         "device_events": len(device),
         "top_device": top((e.name, e.time_range.end - e.time_range.start) for e in device),
         "top_host": top((e.name, e.self_cpu_time_total) for e in host),
-        # every thread's host ops (the upload thread's pinning among
-        # them), summed by name: what a cold run pays that a warm one
+        # every thread's host ops (the checkpoint writer's among them),
+        # summed by name: what a cold run pays that a warm one
         # does not
         "host_ops": totals((e.name, e.self_cpu_time_total) for e in events
                            if e.device_type == DeviceType.CPU and inside(e) and e is not span),
@@ -1799,7 +1800,7 @@ def scale_demo_phase(smi: str) -> dict:
     import numpy as np
     import torch
 
-    from gp_dla_detection_tpu_torch.multi_dla import process_spectra_multi
+    from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi
     from gp_dla_detection_tpu_torch.ops import evidence
     from gp_dla_detection_tpu_torch.parallel import ShardedRunConfig, process_spectra_sharded
 
@@ -3368,7 +3369,7 @@ def main() -> None:
 
     # ---- phase 6: the fused lean two-stage chain
     import gp_dla_detection_tpu_torch.parallel.sharded_multi as sharded_multi
-    from gp_dla_detection_tpu_torch.multi_dla import process_spectra_multi
+    from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi
 
     spectra2 = dataclasses.replace(spectra, flux=inject_second_dlas(w, params, args.seed))
     prior_num = np.where(prior_flags, rng.choice([1, 1, 1, 2], len(prior_flags)), 0)
@@ -3400,7 +3401,7 @@ def main() -> None:
         sharded_multi.pack_lean_pair = reduce_spy if spy else reduce_pair
         sharded_multi.device_inverse_cdf_grid = redraw_spy if spy else kernel_redraw
         try:
-            with strict_issue(sharded_multi) if strict else contextlib.nullcontext():
+            with strict_issue() if strict else contextlib.nullcontext():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 # no device, dtype or backend named: the card, float32, the
@@ -3417,11 +3418,7 @@ def main() -> None:
             sharded_multi.pack_lean_pair = reduce_pair
             sharded_multi.device_inverse_cdf_grid = kernel_redraw
 
-    loops = {   # (pipeline depth, upload thread): the loop's keywords
-        (1, False): SERIAL, (2, False): {"pipeline_depth": 2, "dispatch_thread": False},
-        (2, True): {"pipeline_depth": 2, "dispatch_thread": True},
-        (4, False): {"pipeline_depth": 4, "dispatch_thread": False}, (4, True): {},
-    }
+    loops = {1: SERIAL, 2: {"pipeline_depth": 2}, 4: {}}   # pipeline depth: the loop's keywords
 
     def depths(R, first, first_s, grid, rounds):
         """Runs of each loop in ``grid`` in turns (``rounds`` rounds, the
@@ -3429,22 +3426,21 @@ def main() -> None:
         run): their wall seconds, each result held bit for bit to
         ``first``."""
         seconds = {key: [] for key in grid}
-        seconds[4, True].append(first_s)
+        seconds[4].append(first_s)
         for r in range(rounds):
             for key in (grid if r % 2 else grid[::-1]):
                 res, sec = lean(R, loop=loops[key])
                 if not same_bits(result_arrays(res), result_arrays(first)):
-                    fail(f"lean chain (R={R}): the loop at depth {key[0]}, upload thread "
-                         f"{key[1]}, differs from the pipelined main-path run")
+                    fail(f"lean chain (R={R}): the loop at depth {key} differs from the "
+                         "pipelined main-path run")
                 seconds[key].append(sec)
         return seconds
 
     rates = lambda secs: "/".join(f"{len(spectra2) / t:.1f}" for t in secs)
-    loop_name = lambda key: f"depth {key[0]}" + (", upload thread" if key[1] else "")
     # the process's first pipelined run, profiled: what a cold run pays
     cold4, cold_split = profile_split(lambda: lean(None)[0])
     # the main path, timed, with nothing observing it: the defaults, 4
-    # batches in flight and the uploads on a side thread
+    # batches in flight
     reset_counts()
     lean4, lean_s = lean(None)
     lean_launches = launch_counts()
@@ -3477,22 +3473,22 @@ def main() -> None:
     picks = np.bincount(np.argmax(lean4.model_posteriors, axis=1), minlength=3)
     lean_rate = len(spectra2) / lean_s
     say(f"phase 6: process_spectra_multi_lean (defaults: cuda, float32, the kernels, R=4, "
-        f"pipeline depth 4, upload thread): {len(spectra2)} spectra x {S} samples in "
+        f"pipeline depth 4): {len(spectra2)} spectra x {S} samples in "
         f"{lean_s:.3f} s = {lean_rate:.1f} spectra/s; launches {COUNTED} "
         f"{lean_launches} for {n_batches} batches; launches x phase-5 kernel ms = "
         f"{n_batches * (single_ms_same_call + pair_ms) / 1e3 / lean_s:.2f} of the wall time; "
         f"R=4 layout held on every batch; 3-class picks {picks.tolist()}; rows without a "
         f"valid pair {int((~has_valid).sum())} ({smi})")
     say(f"phase 6: R=4 in turns after it, spectra/s: "
-        + "; ".join(f"{loop_name(key)} {rates(secs)}" for key, secs in secs4.items())
-        + f" (the first of depth 4 with the upload thread is the main path's); every run "
+        + "; ".join(f"depth {key} {rates(secs)}" for key, secs in secs4.items())
+        + f" (the first of depth 4 is the main path's); every run "
         f"bit-identical to the main path's; every issue passed under the sync-debug mode "
         f"\"error\" ({smi})")
     warm_split = None
-    for key in ((4, True), (1, False)):
+    for key in (4, 1):
         _, split6 = profile_split(lambda: lean(None, loop=loops[key])[0])
         warm_split = warm_split or split6
-        say(f"phase 6: R=4 at {loop_name(key)}, warm, {split_text(split6)}")
+        say(f"phase 6: R=4 at depth {key}, warm, {split_text(split6)}")
     say(f"phase 6: R=4, the process's first pipelined run (the default), {split_text(cold_split)}")
     if cold_split and warm_split:
         say(f"phase 6: host ops (every thread) that took most more time in the first pipelined "
@@ -3517,10 +3513,10 @@ def main() -> None:
     launches1 = launch_counts()
     if launches1 != (n_batches, n_batches, n_batches, 0, n_batches):
         fail(f"lean chain (R=1): {launches1} {COUNTED} launches for {n_batches} batches")
-    secs1 = depths(1, lean1, lean1_s, [(1, False), (4, True)], 3)
+    secs1 = depths(1, lean1, lean1_s, [1, 4], 3)
     say(f"phase 6: R=1: {len(spectra2)} spectra in {lean1_s:.3f} s = "
         f"{len(spectra2) / lean1_s:.1f} spectra/s; launches {launches1}; in turns, spectra/s: "
-        f"depth 1 {rates(secs1[1, False])}, the default {rates(secs1[4, True])}, all "
+        f"depth 1 {rates(secs1[1])}, the default {rates(secs1[4])}, all "
         f"bit-identical ({smi})")
     n64 = F64_SUBSET
     t0 = time.perf_counter()

@@ -18,7 +18,7 @@ import torch
 
 from gp_dla_detection_tpu_torch.inference import PaddedSpectra
 from gp_dla_detection_tpu_torch.models.qso_model import GPModel
-from gp_dla_detection_tpu_torch.multi_dla import process_spectra_multi
+from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi
 from gp_dla_detection_tpu_torch.ops.voigt import voigt_absorption
 from gp_dla_detection_tpu_torch.params import DLASamplingParams, NullModelParams, Parameters
 from gp_dla_detection_tpu_torch.samples import generate_dla_samples

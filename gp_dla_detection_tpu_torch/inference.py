@@ -601,15 +601,7 @@ def process_spectra(
 
     on_device = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)
     model_args = (
-        model.rest_wavelengths.to(device=device, dtype=dtype),
-        model.mu.to(device=device, dtype=dtype),
-        model.M.to(device=device, dtype=dtype),
-        model.log_omega.to(device=device, dtype=dtype),
-        model.log_c_0,
-        model.log_tau_0,
-        model.log_beta,
-        on_device(offsets_host),
-        on_device(nhis_host),
+        *model.evidence_args(device, dtype), on_device(offsets_host), on_device(nhis_host),
     )
 
     for start in range(0, n, batch_size):

@@ -108,6 +108,14 @@ class GPModel:
             log_omega=move(self.log_omega),
         )
 
+    def evidence_args(self, device, dtype) -> tuple:
+        """The model as the evidence functions take it: the grid, mu, M
+        and log_omega on ``device`` in ``dtype``, then log_c_0, log_tau_0
+        and log_beta."""
+        move = lambda a: a.to(device=device, dtype=dtype)
+        return (move(self.rest_wavelengths), move(self.mu), move(self.M),
+                move(self.log_omega), self.log_c_0, self.log_tau_0, self.log_beta)
+
     @property
     def k(self) -> int:
         return self.M.shape[1]

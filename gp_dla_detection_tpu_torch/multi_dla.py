@@ -12,7 +12,9 @@ model prior extends the counting prior to multiplicity 2.
 The host helpers (numpy) are copies of the JAX package's, held equal to
 them by the tests; the device parts (the posterior CDF, the inverse-CDF
 redraws, the pair reduction, the pair evaluator) are torch functions on
-tensors.  Two backends evaluate the pairs, as in ``inference``:
+tensors.  The drivers that run them over many spectra are in
+``parallel.sharded_multi``: the fused lean chain and the classic flow
+(``process_spectra_multi``).  Two backends evaluate the pairs, as in ``inference``:
 ``"torch"`` (the plain path, any dtype) and ``"cuda"`` (the pair
 configuration of the CUDA evidence kernel, float32 on CUDA tensors).
 """
@@ -26,23 +28,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .params import LYA_WAVELENGTH, LYMAN_LIMIT, Parameters, kms_to_z
+from .params import LYA_WAVELENGTH, LYMAN_LIMIT, Parameters
 from .utils.atomic_io import atomic_savez
 
 from .cddf_inputs import CDDFInputs
-from .inference import (
-    _NUMPY_DTYPES,
-    InferenceResults,
-    PaddedSpectra,
-    _prepare_spectrum,
-    kernel_sample_window,
-    kernel_span_ids,
-    process_spectra,
-)
-from .models.qso_model import GPModel
+from .inference import InferenceResults, _prepare_spectrum
 from .ops import evidence, redraw
-from .runtime import resolve_backend, resolve_run
-from .utils.observability import driver_call, trace
+from .runtime import resolve_backend
 
 __all__ = [
     "MultiDLAResults",
@@ -59,7 +51,6 @@ __all__ = [
     "pack_lean_pair",
     "packed_base_tables",
     "prior_dla_multiplicity",
-    "process_spectra_multi",
     "replicate_draw_pattern",
 ]
 
@@ -519,217 +510,3 @@ def finalize_multi(
         log_priors_two_dla=log_p2,
         model_posteriors=model_posteriors,
     )
-
-
-# ---------------------------------------------------------------------------
-# the classic driver: host-resampled base draws, (N, S) matrices kept
-# ---------------------------------------------------------------------------
-
-
-@driver_call
-def process_spectra_multi(
-    model: GPModel,
-    offset_samples,
-    nhi_samples,
-    spectra: PaddedSpectra,
-    prior_z_qsos,
-    prior_num_dlas,
-    params: Parameters | None = None,
-    batch_size: int = 16,
-    sample_chunk: int = 1000,
-    dtype: torch.dtype | None = None,
-    device=None,
-    min_separation_kms: float = 3000.0,
-    base_seed: int = 0,
-    single: InferenceResults | None = None,
-    backend: str | None = None,
-    checkpoint_dir=None,
-    progress: bool = False,
-    mesh=None,
-    pipeline_depth: int = 1,
-    dispatch_thread: bool = False,
-) -> MultiDLAResults:
-    """Model selection over {no DLA, 1 DLA, 2 DLAs} on one device, or
-    with its pair stage split over ``mesh`` (``parallel.mesh.Mesh``).
-
-    Runs (or reuses, as ``single``) the single-DLA stage, draws the base
-    absorbers on the host (:func:`make_base_sample_inds`), evaluates the
-    pairs batch by batch and combines the three evidences with the
-    extended counting prior.  ``device``, ``dtype`` and ``backend``
-    default to the CUDA device, float32 and the kernel
-    (``runtime.resolve_run``).  ``backend="cuda"`` (float32 on a CUDA
-    device) sorts the fresh axis once, permutes the base columns the
-    same way and un-sorts the result columns on the host.
-
-    ``checkpoint_dir``: per-batch atomic checkpoints of the pair stage
-    with a manifest and a numerics fingerprint; a rerun resumes the
-    completed batches and ignores (with a warning) checkpoints of
-    another run.
-
-    ``mesh``: default ``make_mesh()``.  Each data rank evaluates its rows
-    of a super-batch of ``batch_size`` x the data axis; on a sample axis
-    each rank takes a contiguous block of the z-sorted pair columns, the
-    base columns travelling with them.  The rows are gathered so that
-    every rank holds the whole result; the coordinator checkpoints.
-    Without ``single``, the single stage runs on one device.
-
-    ``pipeline_depth``, ``dispatch_thread``: the pair stage's batches in
-    flight and its upload thread, as in the mesh drivers
-    (``parallel.overlap``), which pass their config's; the default is
-    the serial loop.  The results do not depend on them.
-    """
-    from .parallel.mesh import DATA_AXIS, SAMPLE_AXIS, fetch_global, make_mesh, rank_device
-    from .parallel.overlap import BackgroundWriter, Transfers, check_depth, run_pipelined_split
-    from .parallel.sharded_inference import (
-        BatchLog,
-        checkpoint_batch,
-        in_sample_order,
-        rank_rows,
-        resumable_batches,
-        run_fingerprint,
-        sample_blocks,
-    )
-
-    check_depth(pipeline_depth)
-    if mesh is None:
-        mesh = make_mesh()
-    device, dtype, backend = resolve_run(rank_device(device, mesh), dtype, backend)
-    if params is None:
-        params = Parameters()
-    if dtype not in _NUMPY_DTYPES:
-        raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
-    np_dtype = _NUMPY_DTYPES[dtype]
-    offsets = np.asarray(offset_samples)
-    nhis = np.asarray(nhi_samples)
-    S = len(offsets)
-    n = len(spectra)
-
-    if single is None:
-        single = process_spectra(
-            model, offsets, nhis, spectra,
-            prior_z_qsos, np.asarray(prior_num_dlas) >= 1,
-            params=params, batch_size=batch_size, sample_chunk=sample_chunk,
-            dtype=dtype, device=device, backend=backend, progress=progress,
-        )
-    elif single.sample_log_likelihoods_dla is None:
-        raise ValueError(
-            "two-stage {0,1,2}-DLA selection resamples the base absorber "
-            "from the single-stage sample likelihoods, which a lean run "
-            "never stores: pass a full single-stage result, or use "
-            "parallel.sharded_multi.process_spectra_multi_lean"
-        )
-    elif len(single.p_dlas) != n or single.sample_log_likelihoods_dla.shape[1] != S:
-        raise ValueError(
-            "precomputed single-DLA results do not match these spectra/"
-            f"samples: {single.sample_log_likelihoods_dla.shape} vs ({n}, {S})"
-        )
-
-    base = make_base_sample_inds(single.sample_log_likelihoods_dla, seed=base_seed)
-    min_sep_z = kms_to_z(min_separation_kms)
-
-    window = None
-    order = None
-    if backend == "cuda":
-        # z-sort the fresh axis; the base columns travel with their pairs
-        order = np.argsort(offsets, kind="stable")
-        window = kernel_sample_window(offsets, spectra.wavelengths.shape[1], params)
-    kernel_ids = kernel_span_ids(params, window)
-    # the pair columns this rank evaluates (original sample indices): a
-    # z-sorted block on a sample axis, else all of them in the layout
-    split = sample_blocks(offsets, mesh)
-    block, columns = split if split is not None else (order, order)
-    cols = np.arange(S) if block is None else block
-
-    on_device = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)
-    model_args = (
-        model.rest_wavelengths.to(device=device, dtype=dtype),
-        model.mu.to(device=device, dtype=dtype),
-        model.M.to(device=device, dtype=dtype),
-        model.log_omega.to(device=device, dtype=dtype),
-        model.log_c_0,
-        model.log_tau_0,
-        model.log_beta,
-        on_device(offsets[cols]),
-        on_device(nhis[cols]),
-    )
-
-    # pair lls stored at the run dtype: (N, S) dominates host memory
-    out2 = np.empty((n, S), np_dtype)
-
-    super_batch = batch_size * mesh.shape[DATA_AXIS]
-    rows = rank_rows(mesh, batch_size)
-    ckpt_dir = Path(checkpoint_dir) if checkpoint_dir else None
-    fingerprint = run_fingerprint(
-        dtype, backend, params, model, offsets, nhis,
-        extra=([min_sep_z, float(sample_chunk)], base, spectra.z_qso),
-    )
-    expect = {
-        "num_spectra": n, "batch_size": super_batch, "num_samples": S,
-        "base_seed": base_seed, "fingerprint": fingerprint,
-    }
-    done = resumable_batches(mesh, ckpt_dir, expect, "two-DLA")
-
-    log = BatchLog(mesh, n, progress)
-    todo = []
-    for bi, start in enumerate(range(0, n, super_batch)):
-        stop = min(start + super_batch, n)
-        if bi not in done:
-            todo.append((bi, start, stop))
-            continue
-        with np.load(ckpt_dir / f"batch_{bi:06d}.npz") as f:
-            out2[start:stop] = f["sample_log_likelihoods_dla2"]
-        log.done(bi, stop - start)
-
-    transfers = Transfers(device)
-
-    def upload(item):
-        # host slice/pad, the base draws' gather and the copy to the
-        # card: no collectives
-        _, start, stop = item
-        batch = spectra.slice(slice(start, stop)).pad_to(super_batch).slice(rows)
-        # per-batch gather: offsets[base] whole would be (N, S) per array
-        bidx = base[start:stop]
-        bidx = np.concatenate([bidx, np.repeat(bidx[-1:], super_batch - len(bidx), axis=0)])
-        bidx = bidx[rows][:, cols]
-        return transfers.upload(
-            (batch.wavelengths, dtype), (batch.flux, dtype), (batch.noise_variance, dtype),
-            (batch.mask, torch.bool), (batch.z_qso, dtype), (offsets[bidx], dtype),
-            (nhis[bidx], dtype),
-        )
-
-    def issue(item, up):
-        # the pair evaluation, enqueued; on a sample axis the rows'
-        # gather (a collective, so here in program order)
-        with trace("gpdla.stage.pair", **kernel_ids):
-            *spec, base_off, base_nhi = transfers.take(up)
-            lls = batch_dla2_log_likelihoods(
-                *spec, *model_args, base_off, base_nhi, params=params, min_sep_z=min_sep_z,
-                backend=backend, sample_window=window, sample_chunk=sample_chunk,
-            )
-            if split is not None:
-                lls = fetch_global(lls, mesh, SAMPLE_AXIS, dim=1)
-        with trace("gpdla.stage.fetch"):
-            return transfers.to_host(lls)
-
-    def complete(item, fetched):
-        bi, start, stop = item
-        (lls,) = transfers.wait(fetched)
-        lls = lls.numpy() if isinstance(lls, torch.Tensor) else lls
-        rows_out = fetch_global(in_sample_order(lls, columns), mesh, DATA_AXIS)[: stop - start]
-        checkpoint_batch(
-            writer, mesh, ckpt_dir, bi, done, expect, {"sample_log_likelihoods_dla2": rows_out}
-        )
-        out2[start:stop] = rows_out
-        return stop - start
-
-    with BackgroundWriter() as writer:
-        run_pipelined_split(
-            todo, *log.stages(upload, issue, complete), depth=pipeline_depth,
-            threaded=dispatch_thread,
-        )
-
-    with trace("gpdla.call.finalize"):
-        return finalize_multi(
-            single, out2, base, spectra.z_qso, prior_z_qsos, prior_num_dlas,
-            params,
-        )

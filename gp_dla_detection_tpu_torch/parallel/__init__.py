@@ -1,8 +1,9 @@
 """Parallel execution: the (data, sample) mesh over torch.distributed
 ranks, the drivers over many batches with checkpoints (the single-DLA
 driver, the {0,1,2}-DLA drivers with the fused lean chain and its device
-reductions), their pipelined upload / issue / complete loop and
-background checkpoint writes, checkpoint fingerprints.
+reductions, the classic flow), their one batch loop (pipelined upload /
+issue / complete, resume, background checkpoint writes), checkpoint
+fingerprints.
 
 Counterpart of ``gp_dla_detection_tpu/parallel/``; the XLA-only
 ``shard_map_compat`` and ``NamedSharding`` helpers (``data_sharding``,
@@ -24,6 +25,7 @@ from .overlap import BackgroundWriter, Transfers, run_pipelined, run_pipelined_s
 from .sharded_inference import ShardedRunConfig, process_spectra_sharded, run_fingerprint
 from .sharded_multi import (
     FUSED_LEAN_BASE_REPLICATES,
+    process_spectra_multi,
     process_spectra_multi_lean,
     process_spectra_multi_sharded,
 )
@@ -42,6 +44,7 @@ __all__ = [
     "fetch_global",
     "is_coordinator",
     "pack_lean",
+    "process_spectra_multi",
     "process_spectra_multi_lean",
     "run_fingerprint",
     "shutdown",

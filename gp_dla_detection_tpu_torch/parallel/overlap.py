@@ -13,9 +13,9 @@ This module supplies the pieces that break that serialization:
     are fetched, so the card computes while the host fetches and does
     its bookkeeping;
   - :func:`run_pipelined_split` -- the same with dispatch split into
-    ``upload`` (on a side thread when asked; no collectives) and
-    ``issue`` (on the calling thread, in item order, so that every rank
-    issues its collectives in one order);
+    ``upload`` (host slice/pad and the copy to the device: no
+    collectives) and ``issue`` (the batch's computation, which may carry
+    collectives), so that each stage has a span of its own;
   - :class:`BackgroundWriter` -- a single-worker ordered writer moving
     the checkpoint and manifest writes off the critical path;
   - :class:`Transfers` -- the device side of the three stages: pinned
@@ -29,9 +29,6 @@ npz/manifest -- load-bearing for the kill/resume contract.
 
 from __future__ import annotations
 
-import queue
-import threading
-import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -51,9 +48,6 @@ __all__ = [
     "run_pipelined_split",
 ]
 
-# seconds a failed pipeline waits for its side thread before leaving it
-JOIN_TIMEOUT = 15.0
-
 
 def check_depth(depth: int) -> None:
     """Raise unless ``depth`` (the items in flight) is at least 1."""
@@ -61,22 +55,7 @@ def check_depth(depth: int) -> None:
         raise ValueError(f"depth must be >= 1, got {depth}")
 
 
-def _join(worker: threading.Thread, what: str) -> None:
-    """Bounded join: the side thread polls its stop flag between items
-    (<= 0.1 s), but one blocked inside a transfer could hang, and an
-    unbounded join would then swallow the caller's exception behind a
-    frozen shutdown.  The thread is a daemon: leave it with a warning and
-    let the error propagate."""
-    worker.join(timeout=JOIN_TIMEOUT)
-    if worker.is_alive():
-        warnings.warn(
-            f"{what} thread still blocked after {JOIN_TIMEOUT:.0f} s; abandoning it "
-            "(daemon) so the original error can propagate",
-            stacklevel=3,
-        )
-
-
-def run_pipelined(items, dispatch, complete, depth: int = 2, threaded: bool = False):
+def run_pipelined(items, dispatch, complete, depth: int = 2):
     """Run ``complete(item, dispatch(item))`` over ``items`` with up to
     ``depth`` dispatched items in flight.
 
@@ -85,141 +64,33 @@ def run_pipelined(items, dispatch, complete, depth: int = 2, threaded: bool = Fa
     fetches results and does host-side bookkeeping.  ``depth=1``
     degenerates to the serial loop; ``depth=2`` is classic double
     buffering (one batch computing while the previous one drains).
-
-    ``threaded=True`` moves ``dispatch`` to a dedicated thread.
-    Guarantees kept from the synchronous mode: dispatch order is strictly
-    sequential (one dispatcher thread), ``complete`` runs on the calling
-    thread in item order, at most ``depth`` items are dispatched but not
-    completed, and an exception from either callback propagates to the
-    caller (the dispatcher is stopped and joined first).  ``dispatch``
-    must be safe to run concurrently with ``complete``.
+    Both callbacks run on the calling thread, in item order, in one
+    program order (dispatch_0 .. dispatch_{d-1}, then complete_{i-d+1},
+    dispatch_i, ...), so that every rank of a process group issues its
+    collectives alike; an exception from either propagates at once.
     """
     check_depth(depth)
-    if not threaded or depth == 1:
-        inflight: deque = deque()
-        for item in items:
-            inflight.append((item, dispatch(item)))
-            while len(inflight) >= depth:
-                done_item, state = inflight.popleft()
-                complete(done_item, state)
-        while inflight:
+    inflight: deque = deque()
+    for item in items:
+        inflight.append((item, dispatch(item)))
+        while len(inflight) >= depth:
             done_item, state = inflight.popleft()
             complete(done_item, state)
-        return
-
-    slots = threading.Semaphore(depth)  # dispatched-but-not-completed
-    results: queue.SimpleQueue = queue.SimpleQueue()  # unbounded: put never blocks
-    stop = threading.Event()
-
-    def dispatcher():
-        try:
-            for item in items:
-                # acquire BEFORE dispatching so the in-flight bound is
-                # strict; poll so a failed consumer can't strand us
-                while not slots.acquire(timeout=0.1):
-                    if stop.is_set():
-                        return
-                if stop.is_set():
-                    return
-                results.put(("item", item, dispatch(item)))
-            results.put(("done", None, None))
-        except BaseException as exc:  # noqa: BLE001 -- relayed to the caller
-            results.put(("raise", exc, None))
-
-    worker = threading.Thread(target=dispatcher, name="gpdla-dispatch", daemon=True)
-    worker.start()
-    try:
-        while True:
-            kind, item, state = results.get()
-            if kind == "done":
-                break
-            if kind == "raise":
-                raise item
-            complete(item, state)
-            slots.release()
-    finally:
-        stop.set()
-        _join(worker, "dispatcher")
+    while inflight:
+        done_item, state = inflight.popleft()
+        complete(done_item, state)
 
 
-def run_pipelined_split(items, upload, issue, complete, depth: int = 2,
-                        threaded: bool = False):
+def run_pipelined_split(items, upload, issue, complete, depth: int = 2):
     """:func:`run_pipelined` with the dispatch stage split into
     ``upload`` (host slice/pad and the copy to the device: no
     collectives) and ``issue`` (the batch's computation, enqueued on the
-    device; it may carry collectives).
-
-    The split exists for multi-rank overlap: every rank must issue its
-    collective-bearing operations (the sample-axis gathers,
-    ``fetch_global``'s all-gathers) in one identical order, or the
-    collectives pair up wrong and the ranks deadlock.  A dispatcher
-    thread would interleave the batch's issue with the main thread's
-    fetch collectives at the scheduler's whim.
-
-    Here ``threaded=True`` moves only the uploads to a side thread; the
-    main thread consumes uploaded batches strictly in item order and runs
-    ``issue``/``complete`` on the exact schedule of the serial path
-    (issue_0 .. issue_{d-1}, then complete_{i-d+1}, issue_i, ..., one
-    program order on every rank), while batch i+1's upload proceeds
-    concurrently with batch i's fetch.  Guarantees: at most ``depth + 1``
-    items uploaded but not completed (an item's slot frees as it BEGINS
-    completing, so the next upload overlaps the blocking fetch even at
-    depth 2), ``issue``/``complete`` run on the calling thread in item
-    order, and worker exceptions propagate.
-
-    ``threaded=False`` degenerates to ``run_pipelined`` with
-    ``dispatch = issue(item, upload(item))``.
+    device; it may carry collectives): ``dispatch = issue(item,
+    upload(item))``, so that every rank issues its collective-bearing
+    operations (the sample-axis gathers, ``fetch_global``'s all-gathers)
+    in one identical order.
     """
-    if not threaded or depth == 1:
-        run_pipelined(
-            items, lambda item: issue(item, upload(item)), complete,
-            depth=depth, threaded=False,
-        )
-        return
-    check_depth(depth)
-
-    slots = threading.Semaphore(depth)  # uploaded-but-not-completed
-    results: queue.SimpleQueue = queue.SimpleQueue()
-    stop = threading.Event()
-
-    def uploader():
-        try:
-            for item in items:
-                while not slots.acquire(timeout=0.1):
-                    if stop.is_set():
-                        return
-                if stop.is_set():
-                    return
-                results.put(("item", item, upload(item)))
-            results.put(("done", None, None))
-        except BaseException as exc:  # noqa: BLE001 -- relayed to the caller
-            results.put(("raise", exc, None))
-
-    worker = threading.Thread(target=uploader, name="gpdla-upload", daemon=True)
-    worker.start()
-    inflight: deque = deque()
-    try:
-        while True:
-            with trace("gpdla.loop.wait_upload"):
-                kind, item, state = results.get()
-            if kind == "done":
-                break
-            if kind == "raise":
-                raise item
-            inflight.append((item, issue(item, state)))
-            while len(inflight) >= depth:
-                done_item, st = inflight.popleft()
-                # free the slot BEFORE the blocking fetch so the side
-                # thread can upload the next batch during it
-                slots.release()
-                complete(done_item, st)
-        while inflight:
-            done_item, st = inflight.popleft()
-            slots.release()
-            complete(done_item, st)
-    finally:
-        stop.set()
-        _join(worker, "upload")
+    run_pipelined(items, lambda item: issue(item, upload(item)), complete, depth=depth)
 
 
 class BackgroundWriter:
@@ -269,7 +140,7 @@ def _pinned(shape, dtype) -> torch.Tensor:
 class Transfers:
     """The host <-> device copies of the pipelined drivers on ``device``.
 
-    On a CUDA device, :meth:`upload` (the upload thread) stages host
+    On a CUDA device, :meth:`upload` (``upload``) stages host
     arrays in pinned buffers and copies them to the card with
     non-blocking copies on a copy stream of its own, then records an
     event; :meth:`take` (``issue``) makes the compute stream wait on that

@@ -51,17 +51,16 @@ one-device values bit for bit (``tests/test_torch_cuda.py``).  The kernels run d
 :func:`process_spectra_multi_sharded` is the driver the pipeline calls:
 the lean chain, or the classic two-pass flow with the single stage's
 checkpoints under ``<checkpoint_dir>/single`` and the pair stage's under
-``<checkpoint_dir>/pair`` (``multi_dla.process_spectra_multi`` on the
-mesh: rows over the data axis, z-sorted blocks of the pair columns over
-the sample axis).
+``<checkpoint_dir>/pair`` (:func:`process_spectra_multi` on the mesh:
+rows over the data axis, z-sorted blocks of the pair columns over the
+sample axis, the base draws resampled on the host).
 
-Both flows run their batches as upload / issue / complete, as the
-single driver does (``overlap.run_pipelined_split``, ``pipeline_depth``
-batches in flight, the uploads on a side thread, the checkpoints on a
-background writer).  ``issue`` enqueues the whole chain of a batch with
-no host sync on a data-only mesh: the draw pattern of R > 1 is checked
-once on the host, not per launch; the index translations run in
-``complete``.
+Both flows run their batches through the drivers' one loop, as the
+single driver does (``batches.run_batches``, ``pipeline_depth`` batches
+in flight, the checkpoints on a background writer).  The chain's
+``issue`` enqueues the whole chain of a batch with no host sync on a
+data-only mesh: the draw pattern of R > 1 is checked once on the host,
+not per launch; the index translations run in ``complete``.
 
 Not ported: ``shard_map`` and the degradation ladders.
 """
@@ -87,6 +86,7 @@ from ..inference import (
     kernel_sample_window,
     kernel_span_ids,
     posteriors_from_evidence,
+    process_spectra,
 )
 from ..models.qso_model import GPModel
 from ..runtime import resolve_run
@@ -98,31 +98,32 @@ from ..multi_dla import (
     batch_dla2_log_likelihoods,
     device_inverse_cdf_grid,
     device_inverse_cdf_grid_reference,
+    finalize_multi,
     finalize_multi_from_evidence,
+    make_base_sample_inds,
     multi_dla_rate_priors,
     pack_lean_pair,
     packed_base_tables,
-    process_spectra_multi,
     replicate_draw_pattern,
 )
 from ..ops import evidence
-from .mesh import DATA_AXIS, SAMPLE_AXIS, Mesh, fetch_global, make_mesh, rank_device
+from .batches import run_batches
+from .mesh import SAMPLE_AXIS, Mesh, fetch_global, make_mesh, rank_device
+from .overlap import check_depth
 from .sharded_inference import (
-    BatchLog,
     ShardedRunConfig,
-    checkpoint_batch,
+    in_sample_order,
     process_spectra_sharded,
-    rank_rows,
-    resumable_batches,
     run_fingerprint,
+    sample_blocks,
 )
-from .overlap import BackgroundWriter, Transfers, check_depth, run_pipelined_split
 from .streaming import pack_lean
 
 __all__ = [
     "FUSED_LEAN_BASE_REPLICATES",
     "PATTERN_TILE",
     "lean_base_columns",
+    "process_spectra_multi",
     "process_spectra_multi_lean",
     "process_spectra_multi_sharded",
 ]
@@ -142,6 +143,7 @@ VEC_KEYS = (
     "log_likelihood_dla", "map_sample_ind",
     "log_likelihood_dla2", "map_sample_ind2", "map_base_sample_ind",
 )
+CDDF_KEYS = ("cddf_hist", "cddf_ex")
 
 
 def lean_base_columns(offsets, base_seed: int, replicates: int, sorted_axis: bool):
@@ -192,7 +194,6 @@ def process_spectra_multi_lean(
     store_cddf_inputs: bool = False,
     mesh: Mesh | None = None,
     pipeline_depth: int = 4,
-    dispatch_thread: bool = True,
 ) -> MultiDLAResults:
     """Lean (catalog-only) {0,1,2}-DLA selection: both stages per batch
     on each data rank's device (see the module docstring).
@@ -213,9 +214,8 @@ def process_spectra_multi_lean(
     (checkpointed with it); the results then carry ``cddf_inputs``.
     ``mesh``: default ``make_mesh()``; a sample axis under ``"torch"``
     only.  The results and checkpoints do not depend on the mesh.
-    ``pipeline_depth``, ``dispatch_thread``: the batches in flight and
-    the upload thread (``ShardedRunConfig``); the results do not depend
-    on them either.
+    ``pipeline_depth``: the batches in flight (``ShardedRunConfig``);
+    the results do not depend on it either.
     """
     check_depth(pipeline_depth)
     if mesh is None:
@@ -284,15 +284,7 @@ def process_spectra_multi_lean(
         evidence.check_base_layout(t, t, R)
 
     on_device = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)
-    model_args = (
-        model.rest_wavelengths.to(device=device, dtype=dtype),
-        model.mu.to(device=device, dtype=dtype),
-        model.M.to(device=device, dtype=dtype),
-        model.log_omega.to(device=device, dtype=dtype),
-        model.log_c_0,
-        model.log_tau_0,
-        model.log_beta,
-    )
+    model_args = model.evidence_args(device, dtype)
     off_orig, nh_orig = on_device(offsets), on_device(nhis)
     off_pair = off_orig if order is None else on_device(offsets[order])
     nh_pair = nh_orig if order is None else on_device(nhis[order])
@@ -336,7 +328,6 @@ def process_spectra_multi_lean(
         )
         host_ex = np.empty((n, 5 * cddf_spec.top_k + 4), _NUMPY_DTYPES[dtype])
 
-    ckpt_dir = Path(checkpoint_dir) / "fused" if checkpoint_dir else None
     # R > 1 draws on another grid: a distinct numerics configuration; a
     # CDDF run fingerprints the reduction spec (its grids determine the
     # stored hist, and other runs' checkpoints lack it)
@@ -353,56 +344,20 @@ def process_spectra_multi_lean(
             else ()
         ),
     )
-    super_batch = batch_size * mesh.shape[DATA_AXIS]
-    rows = rank_rows(mesh, batch_size)
-    expect = {
-        "num_spectra": n, "batch_size": super_batch, "num_samples": S,
-        "fingerprint": fingerprint,
-    }
-    done = resumable_batches(mesh, ckpt_dir, expect, "fused two-stage")
-
-    def batch_vec(a, start, stop):
-        """This rank's rows of a per-spectrum host vector, padded like the
-        super-batch (the last row repeated)."""
-        v = np.asarray(a[start:stop])
-        return np.concatenate([v, np.repeat(v[-1:], super_batch - len(v))])[rows]
-
+    stored = VEC_KEYS + (CDDF_KEYS if store_cddf_inputs else ())
     host_vecs = {k: np.empty(n) for k in VEC_KEYS}
-    log = BatchLog(mesh, n, progress)
-    todo = []
-    for bi, start in enumerate(range(0, n, super_batch)):
-        stop = min(start + super_batch, n)
-        if bi not in done:
-            todo.append((bi, start, stop))
-            continue
-        with np.load(ckpt_dir / f"batch_{bi:06d}.npz") as f:
-            for k in VEC_KEYS:
-                host_vecs[k][start:stop] = f[k]
-            if store_cddf_inputs:
-                host_hist[start:stop] = f["cddf_hist"]
-                host_ex[start:stop] = f["cddf_ex"]
-        log.done(bi, stop - start)
 
-    transfers = Transfers(device)
-
-    def upload(item):
-        # host slice/pad and the copy to the card: no collectives
-        _, start, stop = item
-        batch = spectra.slice(slice(start, stop)).pad_to(super_batch).slice(rows)
-        arrays = [
-            (batch.wavelengths, dtype), (batch.flux, dtype), (batch.noise_variance, dtype),
-            (batch.mask, torch.bool), (batch.z_qso, dtype),
-        ]
+    def store(start: int, stop: int, payload: dict) -> None:
+        for k in VEC_KEYS:
+            host_vecs[k][start:stop] = payload[k]
         if store_cddf_inputs:
-            arrays += [(batch_vec(a, start, stop), dtype)
-                       for a in (log_p_no_dla, log_p_dla, log_p0m, log_p1m, log_p2m)]
-        return transfers.upload(*arrays)
+            host_hist[start:stop] = payload["cddf_hist"]
+            host_ex[start:stop] = payload["cddf_ex"]
 
-    def issue(item, up):
+    def issue(uploaded):
         # both stages, the redraw and the reductions, enqueued; no host
         # sync on a data-only mesh.  On a sample axis ("torch") the rows'
         # gathers are collectives, so here in program order
-        uploaded = transfers.take(up)
         spec, priors = uploaded[:5], uploaded[5:]
         with trace("gpdla.stage.single", **kernel_ids):
             out1 = batch_log_likelihoods(
@@ -434,21 +389,18 @@ def process_spectra_multi_lean(
                     cddf_consts, sll, ev1, out1["log_likelihood_no_dla"],
                     out1["min_z_dla"], out1["max_z_dla"], *priors, lls2, ev2, base_cols,
                 )
-        with trace("gpdla.stage.fetch"):
-            small = (
-                out1["log_likelihood_no_dla"], out1["min_z_dla"], out1["max_z_dla"],
-                ev1, map1, ev2, map2, map_base,
-            )
-            # one copy of the vectors to the host; indices are exact in float64
-            return transfers.to_host(torch.stack([v.to(torch.float64) for v in small]), *cddf)
+        small = (
+            out1["log_likelihood_no_dla"], out1["min_z_dla"], out1["max_z_dla"],
+            ev1, map1, ev2, map2, map_base,
+        )
+        # one copy of the vectors to the host, a row a spectrum; indices
+        # are exact in float64
+        return torch.stack([v.to(torch.float64) for v in small], dim=1), *cddf
 
-    def complete(item, fetched):
-        bi, start, stop = item
-        stacked, *cddf = transfers.wait(fetched)
-        keep = stop - start
-        vecs = list(fetch_global(stacked, mesh, DATA_AXIS, dim=1)[:, :keep])
-        cddf = {k: fetch_global(v, mesh, DATA_AXIS)[:keep]
-                for k, v in zip(("cddf_hist", "cddf_ex"), cddf)}
+    def complete(host):
+        stacked, *cddf = host
+        vecs = list(stacked.T)
+        cddf = dict(zip(CDDF_KEYS, cddf))
         # -1 = no finite sample: the catalog's fallback is index 0; the
         # pair MAPs keep -1 as the no-valid-pair flag
         vecs[4] = np.maximum(vecs[4], 0.0)
@@ -464,22 +416,17 @@ def process_spectra_multi_lean(
                 ex = cddf["cddf_ex"] = np.array(cddf["cddf_ex"])
                 pidx = ex[:, 3 * K : 4 * K].astype(np.int64)
                 ex[:, 3 * K : 4 * K] = np.where(pidx >= 0, order[np.maximum(pidx, 0)], -1)
-        checkpoint_batch(
-            writer, mesh, ckpt_dir, bi, done, {**expect, "base_seed": base_seed},
-            {**dict(zip(VEC_KEYS, vecs)), **cddf},
-        )
-        for k, v in zip(VEC_KEYS, vecs):
-            host_vecs[k][start:stop] = v
-        if cddf:
-            host_hist[start:stop] = cddf["cddf_hist"]
-            host_ex[start:stop] = cddf["cddf_ex"]
-        return keep
+        return {**dict(zip(VEC_KEYS, vecs)), **cddf}
 
-    with BackgroundWriter() as writer:
-        run_pipelined_split(
-            todo, *log.stages(upload, issue, complete), depth=pipeline_depth,
-            threaded=dispatch_thread,
-        )
+    run_batches(
+        spectra, mesh, batch_size, device, dtype, issue=issue, complete=complete, store=store,
+        depth=pipeline_depth, progress=progress,
+        ckpt_dir=Path(checkpoint_dir) / "fused" if checkpoint_dir else None,
+        manifest={"num_samples": S, "fingerprint": fingerprint, "base_seed": base_seed},
+        keys=stored, what="fused two-stage",
+        host_arrays=lambda own: [(own(a), dtype) for a in (
+            log_p_no_dla, log_p_dla, log_p0m, log_p1m, log_p2m)] if store_cddf_inputs else (),
+    )
 
     with trace("gpdla.call.finalize"):
         post = posteriors_from_evidence(
@@ -539,7 +486,7 @@ def process_spectra_multi_sharded(
     Otherwise the classic two-pass flow: the single stage
     (``process_spectra_sharded``, checkpointed under
     ``<checkpoint_dir>/single``) or ``single`` reused, then
-    ``multi_dla.process_spectra_multi`` with its pair checkpoints under
+    :func:`process_spectra_multi` with its pair checkpoints under
     ``<checkpoint_dir>/pair``, its pair stage split over the mesh.
     """
     if params is None:
@@ -570,7 +517,7 @@ def process_spectra_multi_sharded(
             base_seed=base_seed, min_separation_kms=min_separation_kms,
             checkpoint_dir=ckpt_root, progress=progress,
             store_cddf_inputs=config.store_cddf_inputs, mesh=mesh,
-            pipeline_depth=config.pipeline_depth, dispatch_thread=config.dispatch_thread,
+            pipeline_depth=config.pipeline_depth,
         )
     if config.base_replicates not in (None, 1):
         raise ValueError(
@@ -610,5 +557,156 @@ def process_spectra_multi_sharded(
         min_separation_kms=min_separation_kms, base_seed=base_seed, single=single,
         backend=backend,
         checkpoint_dir=ckpt_root / "pair" if ckpt_root else None, progress=progress,
-        mesh=mesh, pipeline_depth=config.pipeline_depth, dispatch_thread=config.dispatch_thread,
+        mesh=mesh, pipeline_depth=config.pipeline_depth,
     )
+
+
+@driver_call
+def process_spectra_multi(
+    model: GPModel,
+    offset_samples,
+    nhi_samples,
+    spectra: PaddedSpectra,
+    prior_z_qsos,
+    prior_num_dlas,
+    params: Parameters | None = None,
+    batch_size: int = 16,
+    sample_chunk: int = 1000,
+    dtype: torch.dtype | None = None,
+    device=None,
+    min_separation_kms: float = 3000.0,
+    base_seed: int = 0,
+    single: InferenceResults | None = None,
+    backend: str | None = None,
+    checkpoint_dir=None,
+    progress: bool = False,
+    mesh: Mesh | None = None,
+    pipeline_depth: int = 1,
+) -> MultiDLAResults:
+    """The classic flow: model selection over {no DLA, 1 DLA, 2 DLAs} on
+    one device, or with its pair stage split over ``mesh``; the
+    counterpart of the JAX package's ``multi_dla.process_spectra_multi``.
+
+    Runs (or reuses, as ``single``) the single-DLA stage, draws the base
+    absorbers on the host (``multi_dla.make_base_sample_inds``),
+    evaluates the pairs batch by batch and combines the three evidences
+    with the extended counting prior.  ``device``, ``dtype`` and
+    ``backend`` default to the CUDA device, float32 and the kernel
+    (``runtime.resolve_run``).  ``backend="cuda"`` (float32 on a CUDA
+    device) sorts the fresh axis once, permutes the base columns the
+    same way and un-sorts the result columns on the host.
+
+    ``checkpoint_dir``: per-batch atomic checkpoints of the pair stage
+    with a manifest and a numerics fingerprint; a rerun resumes the
+    completed batches and ignores (with a warning) checkpoints of
+    another run.
+
+    ``mesh``: default ``make_mesh()``.  Each data rank evaluates its rows
+    of a super-batch of ``batch_size`` x the data axis; on a sample axis
+    each rank takes a contiguous block of the z-sorted pair columns, the
+    base columns travelling with them.  The rows are gathered so that
+    every rank holds the whole result; the coordinator checkpoints.
+    Without ``single``, the single stage runs on one device.
+
+    ``pipeline_depth``: the pair stage's batches in flight, as in the
+    mesh drivers (``batches.run_batches``), which pass their config's;
+    the default is the serial loop.  The results do not depend on it.
+    """
+    check_depth(pipeline_depth)
+    if mesh is None:
+        mesh = make_mesh()
+    device, dtype, backend = resolve_run(rank_device(device, mesh), dtype, backend)
+    if params is None:
+        params = Parameters()
+    if dtype not in _NUMPY_DTYPES:
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
+    offsets = np.asarray(offset_samples)
+    nhis = np.asarray(nhi_samples)
+    S = len(offsets)
+    n = len(spectra)
+
+    if single is None:
+        single = process_spectra(
+            model, offsets, nhis, spectra,
+            prior_z_qsos, np.asarray(prior_num_dlas) >= 1,
+            params=params, batch_size=batch_size, sample_chunk=sample_chunk,
+            dtype=dtype, device=device, backend=backend, progress=progress,
+        )
+    elif single.sample_log_likelihoods_dla is None:
+        raise ValueError(
+            "two-stage {0,1,2}-DLA selection resamples the base absorber "
+            "from the single-stage sample likelihoods, which a lean run "
+            "never stores: pass a full single-stage result, or use "
+            "parallel.sharded_multi.process_spectra_multi_lean"
+        )
+    elif len(single.p_dlas) != n or single.sample_log_likelihoods_dla.shape[1] != S:
+        raise ValueError(
+            "precomputed single-DLA results do not match these spectra/"
+            f"samples: {single.sample_log_likelihoods_dla.shape} vs ({n}, {S})"
+        )
+
+    base = make_base_sample_inds(single.sample_log_likelihoods_dla, seed=base_seed)
+    min_sep_z = kms_to_z(min_separation_kms)
+
+    window = None
+    order = None
+    if backend == "cuda":
+        # z-sort the fresh axis; the base columns travel with their pairs
+        order = np.argsort(offsets, kind="stable")
+        window = kernel_sample_window(offsets, spectra.wavelengths.shape[1], params)
+    kernel_ids = kernel_span_ids(params, window)
+    # the pair columns this rank evaluates (original sample indices): a
+    # z-sorted block on a sample axis, else all of them in the layout
+    split = sample_blocks(offsets, mesh)
+    block, columns = split if split is not None else (order, order)
+    cols = np.arange(S) if block is None else block
+
+    on_device = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)
+    model_args = (
+        *model.evidence_args(device, dtype), on_device(offsets[cols]), on_device(nhis[cols]),
+    )
+
+    # pair lls stored at the run dtype: (N, S) dominates host memory
+    out2 = np.empty((n, S), _NUMPY_DTYPES[dtype])
+    fingerprint = run_fingerprint(
+        dtype, backend, params, model, offsets, nhis,
+        extra=([min_sep_z, float(sample_chunk)], base, spectra.z_qso),
+    )
+
+    def store(start: int, stop: int, payload: dict) -> None:
+        out2[start:stop] = payload["sample_log_likelihoods_dla2"]
+
+    def base_draws(own):
+        # per-batch gather: offsets[base] whole would be (N, S) per array
+        bidx = own(base)[:, cols]
+        return (offsets[bidx], dtype), (nhis[bidx], dtype)
+
+    def issue(uploaded):
+        # the pair evaluation, enqueued; on a sample axis the rows'
+        # gather (a collective, so here in program order)
+        with trace("gpdla.stage.pair", **kernel_ids):
+            *spec, base_off, base_nhi = uploaded
+            lls = batch_dla2_log_likelihoods(
+                *spec, *model_args, base_off, base_nhi, params=params, min_sep_z=min_sep_z,
+                backend=backend, sample_window=window, sample_chunk=sample_chunk,
+            )
+            if split is not None:
+                lls = fetch_global(lls, mesh, SAMPLE_AXIS, dim=1)
+        return (lls,)
+
+    def complete(host):
+        return {"sample_log_likelihoods_dla2": in_sample_order(host[0], columns)}
+
+    run_batches(
+        spectra, mesh, batch_size, device, dtype, issue=issue, complete=complete, store=store,
+        depth=pipeline_depth, progress=progress,
+        ckpt_dir=Path(checkpoint_dir) if checkpoint_dir else None,
+        manifest={"num_samples": S, "base_seed": base_seed, "fingerprint": fingerprint},
+        keys=("sample_log_likelihoods_dla2",), what="two-DLA", host_arrays=base_draws,
+    )
+
+    with trace("gpdla.call.finalize"):
+        return finalize_multi(
+            single, out2, base, spectra.z_qso, prior_z_qsos, prior_num_dlas,
+            params,
+        )

@@ -27,11 +27,11 @@ clock; ``rec.drain()`` hands them over.  A span's ``ids`` are its own
 over those of the span around it on its thread; spans on other threads
 name theirs.  No span waits for the card.
 
-The drivers' spans (``parallel/``, ``multi_dla.process_spectra_multi``),
-with ``call`` (a count of driver calls) and ``batch`` in their ids:
-``gpdla.call`` (one driver call) holding ``gpdla.call.setup`` (entry to
-the loop's start), ``gpdla.loop.wait_upload`` (the calling thread
-blocked on the upload thread), ``gpdla.batch.issue`` (its stages
+The drivers' spans (``parallel/``), with ``call`` (a count of driver
+calls) and ``batch`` in their ids: ``gpdla.call`` (one driver call)
+holding ``gpdla.call.setup`` (entry to the loop's start),
+``gpdla.batch.upload`` (the host slice/pad and the enqueue of the
+copies to the card), ``gpdla.batch.issue`` (its stages
 ``gpdla.stage.single``, ``.redraw``, ``.pair``, ``.cddf`` and ``.fetch``,
 the enqueue of the copies to the host; the evidence stages ``.single``
 and ``.pair`` also carry ``lines``, the Lyman lines, and ``window``, the
@@ -39,10 +39,10 @@ kernel's sample window in pixels, 0 for the full grid), ``gpdla.batch.complete``
 (``gpdla.batch.wait``, the host blocked on the card, and
 ``gpdla.batch.checkpoint``, the hand-off to the writer),
 ``gpdla.call.drain`` (the checkpoint writer's exit) and
-``gpdla.call.finalize`` (the posteriors after the loop); on the upload
-thread ``gpdla.batch.upload``, on the writer's ``gpdla.checkpoint.write``.
+``gpdla.call.finalize`` (the posteriors after the loop); on the
+checkpoint writer's thread ``gpdla.checkpoint.write``.
 ``GPDLA_DRIVER_TIMING=1`` records each driver call's spans and prints a
-line per batch from them (``parallel.sharded_inference.BatchLog``).
+line per batch from them (``parallel.batches.BatchLog``).
 """
 
 from __future__ import annotations

@@ -731,7 +731,7 @@ def test_fused_chain_issue_waits_for_nothing_with_its_spans_on(device, monkeypat
     and ``torch.profiler`` on: no span waits for the card, and every
     stage's span is there once a batch."""
     import torch_distributed_worker as worker
-    from gp_dla_detection_tpu_torch.parallel import sharded_multi
+    from gp_dla_detection_tpu_torch.parallel import batches, sharded_multi
     from gp_dla_detection_tpu_torch.utils import observability
 
     params, model, spectra, offsets, nhis, prior_z, _ = worker.port_problem()
@@ -744,7 +744,7 @@ def test_fused_chain_issue_waits_for_nothing_with_its_spans_on(device, monkeypat
         )
 
     run()   # the kernels built and loaded outside the strict issue
-    real = sharded_multi.run_pipelined_split
+    real = batches.run_pipelined_split
 
     def strict_split(items, upload, issue, complete, **kw):
         def strict(item, uploaded):
@@ -755,7 +755,7 @@ def test_fused_chain_issue_waits_for_nothing_with_its_spans_on(device, monkeypat
                 torch.cuda.set_sync_debug_mode("default")
         real(items, upload, strict, complete, **kw)
 
-    monkeypatch.setattr(sharded_multi, "run_pipelined_split", strict_split)
+    monkeypatch.setattr(batches, "run_pipelined_split", strict_split)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with observability.recording() as rec, torch.profiler.profile(activities=acts):
         run()

@@ -39,7 +39,7 @@ class Resolved(Exception):
 
 DRIVERS = {
     "process_spectra": (inference, inference.process_spectra),
-    "process_spectra_multi": (multi_dla, multi_dla.process_spectra_multi),
+    "process_spectra_multi": (sharded_multi, sharded_multi.process_spectra_multi),
     "process_spectra_multi_lean": (sharded_multi, sharded_multi.process_spectra_multi_lean),
     "process_spectra_sharded": (sharded_inference, sharded_inference.process_spectra_sharded),
     "process_spectra_multi_sharded": (sharded_multi, sharded_multi.process_spectra_multi_sharded),

@@ -31,7 +31,7 @@ import pytest
 import torch
 
 import torch_distributed_worker as worker
-from gp_dla_detection_tpu_torch.parallel import sharded_inference, streaming
+from gp_dla_detection_tpu_torch.parallel import batches, sharded_inference, streaming
 from gp_dla_detection_tpu_torch.parallel.sharded_inference import (
     ShardedRunConfig,
     in_sample_order,
@@ -166,8 +166,8 @@ def test_full_mode_resumes_its_checkpoints_and_refuses_stale_ones(problem, evalu
 
     whole = fields(run(problem, dtype="float32")[0])
     with monkeypatch.context() as m:
-        m.setattr(sharded_inference, "run_pipelined_split",
-                  stop_after(sharded_inference.run_pipelined_split, 2, tmp_path))
+        m.setattr(batches, "run_pipelined_split",
+                  stop_after(batches.run_pipelined_split, 2, tmp_path))
         with pytest.raises(RuntimeError, match="stopped at batch 2"):
             run(problem, checkpoint_dir=str(tmp_path), dtype="float32")
     assert json.loads((tmp_path / "manifest.json").read_text())["completed_batches"] == [0, 1]

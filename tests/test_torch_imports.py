@@ -40,6 +40,7 @@ PORT_MODULES = [
     "gp_dla_detection_tpu_torch.parallel",
     "gp_dla_detection_tpu_torch.parallel.streaming",
     "gp_dla_detection_tpu_torch.parallel.overlap",
+    "gp_dla_detection_tpu_torch.parallel.batches",
     "gp_dla_detection_tpu_torch.parallel.sharded_inference",
     "gp_dla_detection_tpu_torch.parallel.sharded_multi",
     "gp_dla_detection_tpu_torch.cddf_inputs",
@@ -155,6 +156,24 @@ def test_no_import_of_the_jax_package(path):
     # submodules, anywhere in the file
     roots = _imported_roots(ast.parse((REPO / path).read_text()))
     assert not roots & {"jax", "jaxlib", "gp_dla_detection_tpu"}, (path, roots)
+
+
+@pytest.mark.parametrize("path", ["inference.py", "multi_dla.py", "cddf_inputs.py"])
+def test_the_batch_math_imports_nothing_of_the_drivers(path):
+    # the per-batch math sits below parallel/ (the drivers): no import of
+    # it, function-level imports included
+    found = []
+    for node in ast.walk(ast.parse((PORT / path).read_text())):
+        if isinstance(node, ast.ImportFrom):
+            module = node.module or ""
+            names = [module] if module else [a.name for a in node.names]
+            if node.level == 0:
+                names = [m.removeprefix("gp_dla_detection_tpu_torch.") for m in names]
+            found += [m for m in names if m.split(".")[0] == "parallel"]
+        elif isinstance(node, ast.Import):
+            found += [a.name for a in node.names
+                      if a.name.startswith("gp_dla_detection_tpu_torch.parallel")]
+    assert not found, (path, found)
 
 
 def test_chip_smoke_imports_only_the_port():

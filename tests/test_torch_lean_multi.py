@@ -35,6 +35,7 @@ from gp_dla_detection_tpu_torch.parallel import run_fingerprint
 from gp_dla_detection_tpu_torch.parallel.sharded_multi import (
     FUSED_LEAN_BASE_REPLICATES,
     lean_base_columns,
+    process_spectra_multi,
     process_spectra_multi_lean,
 )
 from gp_dla_detection_tpu_torch.parallel.streaming import pack_lean
@@ -281,7 +282,7 @@ def test_lean_matches_classic_in_the_port(problem, prior_num, lean_r1):
     (tests/test_lean_multi.py::test_fused_lean_matches_classic)."""
     params, jmodel, spectra, offsets, nhis, prior_z, _ = problem
     fields = {f.name: getattr(jmodel, f.name) for f in dataclasses.fields(jmodel)}
-    classic = pmd.process_spectra_multi(
+    classic = process_spectra_multi(
         GPModel.from_numpy(**fields, device="cpu", dtype=torch.float64), offsets, nhis,
         PaddedSpectra(spectra.wavelengths, spectra.flux, spectra.noise_variance,
                       spectra.mask, spectra.z_qso),
@@ -391,7 +392,7 @@ def test_lean_cuda_backend_refuses_cpu_and_float64(problem, prior_num):
 # the pipelined loop: upload / issue / complete
 # ---------------------------------------------------------------------------
 
-PIPELINES = [(d, t) for d in (1, 2, 4) for t in (False, True)]
+PIPELINES = (1, 2, 4, 6)
 
 
 def chain_fields(res) -> dict:
@@ -408,23 +409,23 @@ def chain_fields(res) -> dict:
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
 @pytest.mark.parametrize("variant", ["R1", "R4", "cddf"])
 def test_every_pipeline_depth_gives_the_same_bits(problem, prior_num, variant, dtype):
-    """The chain at pipeline depths 1, 2 and 4, with and without the
-    upload thread, in batches of 2 (six batches, so that depth 4 keeps
-    four in flight): bit-identical results, the CDDF inputs included."""
+    """The chain at pipeline depths 1, 2, 4 and 6 in batches of 2 (six
+    batches, so that depth 4 keeps four in flight and depth 6 all of
+    them): bit-identical results, the CDDF inputs included."""
     kw = dict(dtype=dtype, batch_size=2)
     if variant == "R4":
         kw.update(samples=samples_320(), base_replicates=4)
     if variant == "cddf":
         kw["store_cddf_inputs"] = True
     runs = {}
-    for depth, threaded in PIPELINES:
+    for depth in PIPELINES:
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             if variant == "R4":
                 warnings.filterwarnings("ignore", "base_replicates=4", UserWarning)
-            res = run_port(problem, prior_num, pipeline_depth=depth, dispatch_thread=threaded, **kw)
-        runs[depth, threaded] = chain_fields(res)
-    serial = runs[1, False]
+            res = run_port(problem, prior_num, pipeline_depth=depth, **kw)
+        runs[depth] = chain_fields(res)
+    serial = runs[1]
     assert np.isfinite(serial["model_posteriors"]).all()
     for key, fields in runs.items():
         assert sorted(fields) == sorted(serial)
@@ -467,7 +468,7 @@ def test_chain_issue_reads_nothing_back(problem, prior_num, monkeypatch):
     performs no read of a tensor's value and makes no tensor from host
     data, at R = 4 and with the CDDF inputs."""
     from gp_dla_detection_tpu_torch.ops import evidence
-    from gp_dla_detection_tpu_torch.parallel import sharded_multi
+    from gp_dla_detection_tpu_torch.parallel import batches
 
     reads = HostReads()
 
@@ -482,7 +483,7 @@ def test_chain_issue_reads_nothing_back(problem, prior_num, monkeypatch):
 
     for name in ("sample_log_likelihoods_reference", "sample_log_likelihoods_pair_reference"):
         monkeypatch.setattr(evidence, name, plain(getattr(evidence, name)))
-    real = sharded_multi.run_pipelined_split
+    real = batches.run_pipelined_split
     issued = []
 
     def watched(items, upload, issue, complete, **kw):
@@ -492,7 +493,7 @@ def test_chain_issue_reads_nothing_back(problem, prior_num, monkeypatch):
                 return issue(item, uploaded)
         real(items, upload, watched_issue, complete, **kw)
 
-    monkeypatch.setattr(sharded_multi, "run_pipelined_split", watched)
+    monkeypatch.setattr(batches, "run_pipelined_split", watched)
     with pytest.warns(UserWarning, match="base_replicates=4"):
         run_port(problem, prior_num, samples_320(), base_replicates=4, store_cddf_inputs=True)
     assert issued == [0, 1, 2]

@@ -6,7 +6,8 @@
   configuration in interpret mode (float32, 5e-5 normalized) and against
   JAX's XLA pair evaluator in float64 (1e-10 relative, identical NaN
   mask);
-- the classic driver ``process_spectra_multi`` against JAX's on the
+- the classic driver ``parallel.sharded_multi.process_spectra_multi``
+  against JAX's on the
   three-spectrum {0, 1, 2}-DLA problem of tests/test_multi_dla.py, in
   float64 (1e-9) and float32 (the bounds of test_two_dla_pallas_backend);
 - checkpoint resume, result files shared with JAX, refusals.
@@ -32,6 +33,7 @@ from gp_dla_detection_tpu_torch.cddf_inputs import CDDFInputs, CDDFReductionSpec
 from gp_dla_detection_tpu_torch.inference import PaddedSpectra
 from gp_dla_detection_tpu_torch.models.qso_model import GPModel
 from gp_dla_detection_tpu_torch.ops import evidence
+from gp_dla_detection_tpu_torch.parallel.sharded_multi import process_spectra_multi
 
 from synthetic_problem import make_problem
 from test_base_replicates import _kernel_problem
@@ -303,7 +305,7 @@ def multi_runs():
         ),
     }
     for name, dtype in (("port64", torch.float64), ("port32", torch.float32)):
-        out[name] = pmd.process_spectra_multi(
+        out[name] = process_spectra_multi(
             port_model(jmodel, dtype), offsets, nhis, PaddedSpectra(*arrays),
             prior_z, prior_num, dtype=dtype, **kw, device="cpu",
         )
@@ -346,7 +348,7 @@ def test_process_spectra_multi_checkpoint_resume(multi_runs, tmp_path):
     kw = dict(params=params, batch_size=2, sample_chunk=100, dtype=torch.float32,
               single=single, checkpoint_dir=ck)
     model = port_model(jmodel, torch.float32)
-    run = lambda **extra: pmd.process_spectra_multi(
+    run = lambda **extra: process_spectra_multi(
         model, offsets, nhis, PaddedSpectra(*arrays), prior_z, prior_num, **kw, **extra, device="cpu"
     )
     r1 = run()
@@ -405,7 +407,7 @@ def test_cuda_backend_refuses_cpu_and_float64(dla2_inputs):
     params, jmodel, spectra, offsets, nhis, base = dla2_inputs
     for dtype in (torch.float32, torch.float64):
         with pytest.raises(ValueError, match="backend='cuda'"):
-            pmd.process_spectra_multi(
+            process_spectra_multi(
                 port_model(jmodel, dtype), offsets, nhis, port_spectra(spectra),
                 np.array([3.0]), np.array([1]), params=params, dtype=dtype,
                 backend="cuda", device="cpu",
@@ -422,7 +424,7 @@ def test_cuda_backend_refuses_cpu_and_float64(dla2_inputs):
             params=params, min_sep_z=0.01, backend="cuda",
         )
     with pytest.raises(ValueError, match="unknown backend"):
-        pmd.process_spectra_multi(
+        process_spectra_multi(
             port_model(jmodel), offsets, nhis, port_spectra(spectra),
             np.array([3.0]), np.array([1]), params=params, backend="xla", device="cpu", dtype=torch.float64,
         )

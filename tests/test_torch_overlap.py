@@ -3,11 +3,13 @@ parallel/overlap.py), held to the JAX package's contracts.
 
 tests/test_overlap.py's nine cases, run against the port's module: the
 pipelined loop completes every item exactly once and in order while
-keeping the dispatch-ahead bound; the background writer preserves write
+keeping the dispatch-ahead bound, on the calling thread, with every
+callback's exception propagating; the background writer preserves write
 order and surfaces worker errors; atomic writes never leave torn files
 behind.  One more case holds the port's ``run_pipelined_split`` to the
-JAX module's: the same upload, issue and complete calls in the same
-order at depths 1-4, threaded and not.
+JAX module's: the same issue and complete calls in the same program
+order at depths 1-4, against the JAX loop with and without its upload
+thread, each upload right before its issue.
 """
 
 import json
@@ -47,54 +49,48 @@ def test_run_pipelined_completes_all_in_order():
 
 
 def test_run_pipelined_threaded_overlaps_and_bounds():
-    """Threaded mode: completes in order, dispatch genuinely overlaps a
-    blocking complete, the in-flight bound holds, and exceptions from
-    both callbacks propagate (with the dispatcher joined)."""
-    completed = []
-    inflight = []
+    """The one loop runs both callbacks on the calling thread: it
+    completes in order, keeps at most ``depth`` items dispatched but not
+    completed, dispatches the next item only once the oldest completed,
+    and an exception from either callback propagates at once, with
+    nothing dispatched or completed after it and no thread left."""
+    main = threading.get_ident()
+    completed, events, inflight = [], [], []
     n_inflight = 0
-    lock = threading.Lock()
-    d3_started = threading.Event()
 
     def dispatch(i):
         nonlocal n_inflight
-        with lock:
-            n_inflight += 1
-            inflight.append(n_inflight)
-        if i == 3:
-            d3_started.set()
+        assert threading.get_ident() == main
+        n_inflight += 1
+        inflight.append(n_inflight)
+        events.append(("d", i))
         return i * 10
 
     def complete(i, s):
         nonlocal n_inflight
-        if i == 1:
-            # depth=3: dispatch(3)'s slot frees when complete(0) returns,
-            # so a THREADED dispatcher starts it while the caller is
-            # still inside complete(1) — a serial implementation would
-            # only reach dispatch(3) after complete(1) returns, so this
-            # wait genuinely distinguishes overlap from lookahead
-            assert d3_started.wait(timeout=5.0), (
-                "dispatch did not overlap a blocking complete"
-            )
+        assert threading.get_ident() == main
         completed.append((i, s))
-        with lock:
-            n_inflight -= 1
+        n_inflight -= 1
+        events.append(("c", i))
 
-    run_pipelined(range(6), dispatch, complete, depth=3, threaded=True)
+    run_pipelined(range(6), dispatch, complete, depth=3)
     assert completed == [(i, i * 10) for i in range(6)]
-    assert max(inflight) <= 3  # strict dispatched-not-completed bound
+    assert max(inflight) == 3  # strict dispatched-not-completed bound, reached
+    assert events.index(("c", 0)) < events.index(("d", 3)) < events.index(("c", 1))
 
-    # complete() exceptions propagate; the dispatcher thread is stopped
+    # complete() exceptions propagate before anything more is dispatched
+    dispatched = []
     with pytest.raises(RuntimeError, match="fetch died"):
         run_pipelined(
             range(100),
-            dispatch=lambda i: i,
+            dispatch=lambda i: dispatched.append(i) or i,
             complete=lambda i, s: (_ for _ in ()).throw(
                 RuntimeError("fetch died")
             ),
             depth=2,
-            threaded=True,
         )
+    assert dispatched == [0, 1]
+
     # dispatch() exceptions propagate too
     def bad_dispatch(i):
         if i == 2:
@@ -103,16 +99,9 @@ def test_run_pipelined_threaded_overlaps_and_bounds():
 
     done = []
     with pytest.raises(OSError, match="upload died"):
-        run_pipelined(
-            range(10), bad_dispatch, lambda i, s: done.append(i),
-            depth=2, threaded=True,
-        )
-    assert done == [0, 1]
-    # no leaked dispatcher threads (count by name: the process-wide
-    # total is environment-dependent — JAX pools, plugin threads)
-    assert not [
-        t for t in threading.enumerate() if t.name.startswith("gpdla-dispatch")
-    ]
+        run_pipelined(range(10), bad_dispatch, lambda i, s: done.append(i), depth=2)
+    assert done == [0]
+    assert not [t for t in threading.enumerate() if t.name.startswith("gpdla-")]
 
 
 def test_run_pipelined_depth_one_is_serial():
@@ -131,8 +120,8 @@ def test_run_pipelined_depth_one_is_serial():
 
 
 def test_run_pipelined_split_serial_schedule():
-    """threaded=False degenerates to the serial pipeline: upload+issue
-    fused as dispatch, same bounded lookahead."""
+    """The split loop is the pipelined loop with upload+issue fused as
+    dispatch: the same bounded lookahead."""
     events = []
     run_pipelined_split(
         range(5),
@@ -140,7 +129,6 @@ def test_run_pipelined_split_serial_schedule():
         issue=lambda i, u: (events.append(("i", i)), u * 10)[1],
         complete=lambda i, s: events.append(("c", i, s)),
         depth=2,
-        threaded=False,
     )
     assert [e for e in events if e[0] == "c"] == [
         ("c", i, i * 10) for i in range(5)
@@ -150,27 +138,24 @@ def test_run_pipelined_split_serial_schedule():
 
 
 def test_run_pipelined_split_threaded_deterministic_issue_order():
-    """Threaded mode's load-bearing contract for multi-controller runs:
-    issue/complete land on the CALLING thread in the serial schedule's
-    exact program order (issue_0, issue_1, complete_0, issue_2, ... at
-    depth 2) no matter how upload timing jitters — collective issuance
-    order must be identical on every controller.  Uploads still
-    genuinely overlap a blocking complete."""
+    """The load-bearing contract for multi-rank runs: upload, issue and
+    complete land on the CALLING thread in the serial schedule's exact
+    program order (upload_0, issue_0, upload_1, issue_1, complete_0,
+    upload_2, issue_2, ... at depth 2) however long the uploads take, so
+    that every rank issues its collectives in one order; at most
+    ``depth`` items are uploaded but not completed."""
     main = threading.get_ident()
     schedule = []
     inflight_hwm = [0]
     n_up = [0]
-    lock = threading.Lock()
-    u2_done = threading.Event()
 
     def upload(i):
+        assert threading.get_ident() == main
         # jitter: odd uploads are slow — must not perturb the schedule
-        time.sleep(0.02 if i % 2 else 0.0)
-        with lock:
-            n_up[0] += 1
-            inflight_hwm[0] = max(inflight_hwm[0], n_up[0])
-        if i == 2:
-            u2_done.set()
+        time.sleep(0.005 if i % 2 else 0.0)
+        n_up[0] += 1
+        inflight_hwm[0] = max(inflight_hwm[0], n_up[0])
+        schedule.append(("u", i))
         return i
 
     def issue(i, u):
@@ -180,63 +165,52 @@ def test_run_pipelined_split_threaded_deterministic_issue_order():
 
     def complete(i, s):
         assert threading.get_ident() == main
-        if i == 0:
-            # depth=2: while the caller blocks in complete(0), the side
-            # thread must push upload(2) — the overlap this exists for
-            assert u2_done.wait(timeout=5.0), (
-                "upload did not overlap a blocking complete"
-            )
         schedule.append(("c", i, s))
-        with lock:
-            n_up[0] -= 1
+        n_up[0] -= 1
 
     for _ in range(3):  # schedule must be stable across repeats
         schedule.clear()
-        run_pipelined_split(
-            range(5), upload, issue, complete, depth=2, threaded=True,
-        )
+        run_pipelined_split(range(5), upload, issue, complete, depth=2)
         assert schedule == [
-            ("i", 0), ("i", 1), ("c", 0, 0), ("i", 2), ("c", 1, 10),
-            ("i", 3), ("c", 2, 20), ("i", 4), ("c", 3, 30), ("c", 4, 40),
+            ("u", 0), ("i", 0), ("u", 1), ("i", 1), ("c", 0, 0), ("u", 2), ("i", 2),
+            ("c", 1, 10), ("u", 3), ("i", 3), ("c", 2, 20), ("u", 4), ("i", 4),
+            ("c", 3, 30), ("c", 4, 40),
         ]
-    # uploaded-not-completed bound is depth + 1: the completing item's
-    # slot frees as its fetch begins so the next upload overlaps it
-    assert inflight_hwm[0] <= 3
+    assert inflight_hwm[0] == 2
 
 
 def test_run_pipelined_split_threaded_errors_propagate():
-    # upload() exceptions propagate from the side thread
+    # upload() exceptions propagate, before that item's issue
     def bad_upload(i):
         if i == 2:
             raise OSError("upload died")
         return i
 
-    done = []
+    done, issued = [], []
     with pytest.raises(OSError, match="upload died"):
         run_pipelined_split(
-            range(10), bad_upload, lambda i, u: u,
-            lambda i, s: done.append(i), depth=2, threaded=True,
+            range(10), bad_upload, lambda i, u: issued.append(i) or u,
+            lambda i, s: done.append(i), depth=2,
         )
-    assert done == [0]  # issue_0, issue_1, complete_0, then the raise
+    assert (issued, done) == ([0, 1], [0])  # issue_0, issue_1, complete_0, then the raise
 
-    # issue() and complete() exceptions propagate from the main thread
+    # issue() and complete() exceptions propagate as well
     with pytest.raises(RuntimeError, match="issue died"):
         run_pipelined_split(
             range(10), lambda i: i,
             lambda i, u: (_ for _ in ()).throw(RuntimeError("issue died")),
-            lambda i, s: None, depth=2, threaded=True,
+            lambda i, s: None, depth=2,
         )
+    uploaded = []
     with pytest.raises(RuntimeError, match="fetch died"):
         run_pipelined_split(
-            range(100), lambda i: i, lambda i, u: u,
+            range(100), lambda i: uploaded.append(i) or i, lambda i, u: u,
             lambda i, s: (_ for _ in ()).throw(RuntimeError("fetch died")),
-            depth=2, threaded=True,
+            depth=2,
         )
-    # no leaked upload threads
-    time.sleep(0.2)
-    assert not [
-        t for t in threading.enumerate() if t.name.startswith("gpdla-upload")
-    ]
+    assert uploaded == [0, 1]
+    # no thread left behind
+    assert not [t for t in threading.enumerate() if t.name.startswith("gpdla-")]
 
 
 def test_background_writer_ordered_and_raises():
@@ -300,7 +274,7 @@ def test_atomic_writes_no_torn_files(tmp_path):
     assert list(tmp_path.iterdir()) and not list(tmp_path.glob("*.tmp"))
 
 
-def split_schedule(split, depth: int, threaded: bool, n: int = 7):
+def split_schedule(split, depth: int, n: int = 7, **kw):
     """The calls ``split`` makes on a calling-thread list and a side-thread
     list: each in the order it made them."""
     main = threading.get_ident()
@@ -315,7 +289,7 @@ def split_schedule(split, depth: int, threaded: bool, n: int = 7):
         issue=lambda i, u: (record("i", i, u), u * 10)[1],
         complete=lambda i, s: record("c", i, s),
         depth=depth,
-        threaded=threaded,
+        **kw,
     )
     return calls
 
@@ -323,18 +297,26 @@ def split_schedule(split, depth: int, threaded: bool, n: int = 7):
 @pytest.mark.parametrize("threaded", [False, True], ids=["serial", "threaded"])
 @pytest.mark.parametrize("depth", [1, 2, 3, 4])
 def test_run_pipelined_split_schedule_equals_jax(depth, threaded):
-    """The port's loop makes the JAX loop's calls in the JAX loop's order:
-    with threads, the uploads in item order on the side thread and issue
-    and complete in one program order on the calling thread; without, all
-    of them on the calling thread in one order."""
-    ours = split_schedule(run_pipelined_split, depth, threaded)
-    assert ours == split_schedule(jax_overlap.run_pipelined_split, depth, threaded)
-    side = threaded and depth > 1
-    assert [e for e in ours["side" if side else "main"] if e[0] == "u"] == [("u", i) for i in range(7)]
+    """The port's loop makes the JAX loop's issue and complete calls in
+    the JAX loop's program order on the calling thread, with or without
+    the JAX loop's upload thread; the port's uploads run there too, in
+    item order, each right before its issue (without the thread, the
+    JAX loop's calls exactly)."""
+    ours = split_schedule(run_pipelined_split, depth)
+    jax = split_schedule(jax_overlap.run_pipelined_split, depth, threaded=threaded)
+    assert ours["side"] == []
+    drop_uploads = lambda calls: [e for e in calls if e[0] != "u"]
+    assert drop_uploads(ours["main"]) == drop_uploads(jax["main"])
+    if not threaded:
+        assert ours == jax
+    for i in range(7):
+        assert ours["main"].index(("u", i)) + 1 == ours["main"].index(("i", i, i))
     assert [e for e in ours["main"] if e[0] == "c"] == [("c", i, i * 10) for i in range(7)]
-    for split in (run_pipelined_split, jax_overlap.run_pipelined_split):
-        with pytest.raises(ValueError, match="depth"):
-            split([], lambda i: i, lambda i, u: u, lambda i, s: None, depth=0, threaded=threaded)
+    with pytest.raises(ValueError, match="depth"):
+        run_pipelined_split([], lambda i: i, lambda i, u: u, lambda i, s: None, depth=0)
+    with pytest.raises(ValueError, match="depth"):
+        jax_overlap.run_pipelined_split([], lambda i: i, lambda i, u: u, lambda i, s: None,
+                                        depth=0, threaded=threaded)
     with pytest.raises(ValueError, match="depth"):
         overlap.check_depth(0)
 

@@ -55,6 +55,7 @@ from gp_dla_detection_tpu_torch.parallel import (
     fetch_global,
     initialize_distributed,
     is_coordinator,
+    batches,
     make_mesh,
     sharded_inference,
     sharded_multi,
@@ -130,8 +131,8 @@ def runs(tmp_path_factory, problem):
     out = tmp_path_factory.mktemp("ranks")
     procs = spawn(out, "drivers")
     params, model, spectra, offsets, nhis, prior_z, prior_f = problem
-    # the serial loop here; the ranks run at depth 4 with the upload thread
-    serial = dict(pipeline_depth=1, dispatch_thread=False)
+    # the serial loop here; the ranks run at depth 4
+    serial = dict(pipeline_depth=1)
     single = lambda **kw: process_spectra_sharded(
         model, offsets, nhis, spectra, prior_z, prior_f, params=params, config=cfg(**serial, **kw)
     )
@@ -392,7 +393,7 @@ def test_one_rank_mesh_resumes_every_batch(ranks, problem, monkeypatch):
 
     for module, name in ((sharded_inference, "batch_log_likelihoods"),
                          (sharded_multi, "batch_log_likelihoods"),
-                         (multi_dla, "batch_dla2_log_likelihoods")):
+                         (sharded_multi, "batch_dla2_log_likelihoods")):
         monkeypatch.setattr(module, name, refuse)
     resume = lambda sub, **kw: ShardedRunConfig(
         per_device_batch=2 * PDB, sample_chunk=32, dtype="float64", device="cpu",
@@ -488,7 +489,7 @@ def test_pipeline_cli_on_two_ranks(synthetic_release, tmp_path, monkeypatch):
 # the pipelined loop: upload / issue / complete
 # ---------------------------------------------------------------------------
 
-PIPELINES = [(d, t) for d in (1, 2, 4) for t in (False, True)]
+PIPELINES = (1, 2, 4, 6)
 
 
 def run_driver(problem, driver: str, **kw):
@@ -508,12 +509,9 @@ def run_driver(problem, driver: str, **kw):
 
 
 def test_pipeline_defaults_and_refusal(problem):
-    """The JAX package's defaults: four batches in flight, uploads on a
-    side thread; a depth below 1 is refused before anything runs."""
-    config = ShardedRunConfig()
-    assert (config.pipeline_depth, config.dispatch_thread) == (4, True)
-    assert (config.pipeline_depth, config.dispatch_thread) == (
-        JaxRunConfig().pipeline_depth, JaxRunConfig().dispatch_thread)
+    """The JAX package's default: four batches in flight; a depth below 1
+    is refused before anything runs."""
+    assert ShardedRunConfig().pipeline_depth == JaxRunConfig().pipeline_depth == 4
     for driver in ("single_full", "classic", "fused"):
         with pytest.raises(ValueError, match="depth must be >= 1"):
             run_driver(problem, driver, pipeline_depth=0)
@@ -523,11 +521,10 @@ def test_pipeline_defaults_and_refusal(problem):
 @pytest.mark.parametrize("driver", ["single_full", "single_lean", "classic"])
 def test_every_pipeline_depth_gives_the_same_bits(problem, driver, dtype):
     """The single driver (full and lean) and the classic flow (its single
-    stage and its pair stage pipelined) at depths 1, 2 and 4, with and
-    without the upload thread: bit-identical results."""
-    runs = {(d, t): run_driver(problem, driver, dtype=dtype, pipeline_depth=d, dispatch_thread=t)
-            for d, t in PIPELINES}
-    serial = runs[1, False]
+    stage and its pair stage pipelined) at depths 1, 2, 4 and 6 (every
+    one of the six batches in flight): bit-identical results."""
+    runs = {d: run_driver(problem, driver, dtype=dtype, pipeline_depth=d) for d in PIPELINES}
+    serial = runs[1]
     for key, fields in runs.items():
         assert_bit_equal(fields, serial)
 
@@ -546,27 +543,24 @@ def fail_in_complete(real, batch: int):
     return split
 
 
-STREAMS = {  # driver -> (the module whose loop fails, its checkpoint subdirectory)
-    "single_full": ("sharded_inference", "."),
-    "fused": ("sharded_multi", "fused"),
-    "classic": ("overlap", "pair"),
+STREAMS = {  # driver -> (the module of its evaluation, its checkpoint subdirectory)
+    "single_full": (sharded_inference, "."),
+    "fused": (sharded_multi, "fused"),
+    "classic": (sharded_multi, "pair"),
 }
 
 
 @pytest.mark.parametrize("driver", sorted(STREAMS))
 def test_resume_after_a_failure_mid_pipeline(problem, driver, tmp_path, monkeypatch):
-    """A failure in batch 2's ``complete`` at depth 4 (threaded): the
-    manifest lists only batches whose file landed, none at or past the
-    failure; a rerun computes exactly the batches it does not list and
-    gives the uninterrupted run's results bit for bit."""
-    from gp_dla_detection_tpu_torch.parallel import overlap
-
-    module = {"sharded_inference": sharded_inference, "sharded_multi": sharded_multi,
-              "overlap": overlap}[STREAMS[driver][0]]
-    ckpt = tmp_path / STREAMS[driver][1]
+    """A failure in batch 2's ``complete`` at depth 4: the manifest lists
+    only batches whose file landed, none at or past the failure; a rerun
+    computes exactly the batches it does not list and gives the
+    uninterrupted run's results bit for bit."""
+    home, sub = STREAMS[driver]
+    ckpt = tmp_path / sub
     uninterrupted = run_driver(problem, driver, pipeline_depth=1)
     with monkeypatch.context() as m:
-        m.setattr(module, "run_pipelined_split", fail_in_complete(module.run_pipelined_split, 2))
+        m.setattr(batches, "run_pipelined_split", fail_in_complete(batches.run_pipelined_split, 2))
         with pytest.raises(RuntimeError, match="injected failure at batch 2"):
             run_driver(problem, driver, checkpoint_dir=str(tmp_path))
     manifest = ckpt / "manifest.json"
@@ -576,7 +570,6 @@ def test_resume_after_a_failure_mid_pipeline(problem, driver, tmp_path, monkeypa
     assert not list(ckpt.glob("*.tmp"))
 
     evaluated = []
-    home = {"single_full": sharded_inference, "fused": sharded_multi, "classic": multi_dla}[driver]
     name = "batch_dla2_log_likelihoods" if driver == "classic" else "batch_log_likelihoods"
     real = getattr(home, name)
     monkeypatch.setattr(home, name, lambda *a, **kw: evaluated.append(1) or real(*a, **kw))
@@ -590,7 +583,7 @@ def test_a_failed_checkpoint_write_raises(problem, driver, tmp_path, monkeypatch
     def full_disk(*a, **kw):
         raise OSError("disk full")
 
-    monkeypatch.setattr(sharded_inference, "atomic_savez", full_disk)
+    monkeypatch.setattr(batches, "atomic_savez", full_disk)
     with pytest.raises(OSError, match="disk full"):
         run_driver(problem, driver, checkpoint_dir=str(tmp_path))
 

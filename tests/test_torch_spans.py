@@ -1,6 +1,6 @@
 """The port's spans (``utils/observability.trace``) on the CPU: nesting,
-parents and the ``call``/``batch`` ids across the calling, upload and
-writer threads; nothing done while neither the recorder nor
+parents and the ``call``/``batch`` ids across the calling and writer
+threads; nothing done while neither the recorder nor
 ``torch.profiler`` is on; the calling thread's spans in the profiler's
 trace; the drivers' spans, one of each per batch and per call, with the
 same results bit for bit whether the recorder is on or off, and the
@@ -55,7 +55,7 @@ def run(problem, mode, depth=1, checkpoint_dir=None):
     driver, extra = MODES[mode]
     config = ShardedRunConfig(
         per_device_batch=BATCH, sample_chunk=32, dtype="float64", device="cpu",
-        backend="torch", pipeline_depth=depth, dispatch_thread=True,
+        backend="torch", pipeline_depth=depth,
         checkpoint_dir=None if checkpoint_dir is None else str(checkpoint_dir), **extra)
     if driver == "single":
         return process_spectra_sharded(model, offsets, nhis, spectra, prior_z, prior_f,
@@ -95,14 +95,17 @@ def test_spans_nest_and_carry_their_ids_across_threads(problem, tmp_path):
     by = {}
     for s in spans:
         by.setdefault(s.name, []).append(s)
-    # the upload and writer threads name their batch; the calling
-    # thread's spans take theirs from the span around them
-    for name, thread in (("gpdla.batch.upload", "gpdla-upload"),
-                         ("gpdla.checkpoint.write", "gpdla-ckpt")):
-        assert sorted(s.ids["batch"] for s in by[name]) == list(range(n))
-        assert all(s.thread.startswith(thread) and s.parent is None for s in by[name])
-    parents = {"gpdla.call.setup": "gpdla.call", "gpdla.batch.issue": "gpdla.call",
-               "gpdla.batch.complete": "gpdla.call", "gpdla.loop.wait_upload": "gpdla.call",
+    # the writer thread names its batch; the calling thread's spans take
+    # theirs from the span around them, the uploads' among them
+    writes = by["gpdla.checkpoint.write"]
+    assert sorted(s.ids["batch"] for s in writes) == list(range(n))
+    assert all(s.thread.startswith("gpdla-ckpt") and s.parent is None for s in writes)
+    uploads = by["gpdla.batch.upload"]
+    assert [s.ids["batch"] for s in uploads] == list(range(n))
+    assert all(s.thread == call.thread for s in uploads)
+    assert "gpdla.loop.wait_upload" not in by   # no upload thread to wait on
+    parents = {"gpdla.call.setup": "gpdla.call", "gpdla.batch.upload": "gpdla.call",
+               "gpdla.batch.issue": "gpdla.call", "gpdla.batch.complete": "gpdla.call",
                "gpdla.call.drain": "gpdla.call", "gpdla.call.finalize": "gpdla.call",
                "gpdla.stage.single": "gpdla.batch.issue", "gpdla.stage.fetch": "gpdla.batch.issue",
                "gpdla.batch.wait": "gpdla.batch.complete",
@@ -173,8 +176,7 @@ def test_driver_spans_once_per_batch_and_call_and_the_same_bits(problem, mode, d
     for name in BATCH_SPANS + tuple(stages):
         per_batch = Counter(s.ids["batch"] for s in spans if s.name == name)
         assert per_batch == {b: 1 for b in range(n)}, name
-    if depth == 1:
-        assert count["gpdla.loop.wait_upload"] == 0   # the serial loop has no upload thread
+    assert count["gpdla.loop.wait_upload"] == 0   # no loop has an upload thread
     means = load_chip_smoke().stage_means(out.getvalue())
     assert sorted(means) == ["batches", "dispatch", "fetch", "upload"]
     assert means["batches"] == n and all(means[k] >= 0 for k in ("upload", "dispatch", "fetch"))

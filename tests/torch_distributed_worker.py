@@ -193,7 +193,7 @@ def single_fields(res) -> dict:
 
 def run_drivers(rank: int, out_dir: Path) -> None:
     from gp_dla_detection_tpu_torch.models.training import TrainingData, learn_gp_model
-    from gp_dla_detection_tpu_torch.parallel import sharded_inference
+    from gp_dla_detection_tpu_torch.parallel import batches
     from gp_dla_detection_tpu_torch.parallel.mesh import make_mesh
     from gp_dla_detection_tpu_torch.parallel.sharded_inference import (
         ShardedRunConfig,
@@ -206,7 +206,7 @@ def run_drivers(rank: int, out_dir: Path) -> None:
 
     # count this rank's checkpoint writes (only the coordinator writes)
     writes = {"npz": 0, "json": 0}
-    savez, write_json = sharded_inference.atomic_savez, sharded_inference.atomic_write_json
+    savez, write_json = batches.atomic_savez, batches.atomic_write_json
 
     def counted_savez(*a, **kw):
         writes["npz"] += 1
@@ -216,8 +216,8 @@ def run_drivers(rank: int, out_dir: Path) -> None:
         writes["json"] += 1
         return write_json(*a, **kw)
 
-    sharded_inference.atomic_savez = counted_savez
-    sharded_inference.atomic_write_json = counted_json
+    batches.atomic_savez = counted_savez
+    batches.atomic_write_json = counted_json
 
     params, model, spectra, offsets, nhis, prior_z, prior_f = port_problem()
     data_mesh = make_mesh()
@@ -228,7 +228,7 @@ def run_drivers(rank: int, out_dir: Path) -> None:
     # the pipelined loop at the JAX package's defaults, stated
     config = lambda **kw: ShardedRunConfig(
         per_device_batch=PER_RANK_BATCH, sample_chunk=32, dtype="float64", device="cpu",
-        backend="torch", pipeline_depth=4, dispatch_thread=True, **kw,
+        backend="torch", pipeline_depth=4, **kw,
     )
     save = lambda name, fields: np.savez(out_dir / f"{name}_p{rank}.npz", **fields)
     single = lambda mesh, **kw: process_spectra_sharded(
